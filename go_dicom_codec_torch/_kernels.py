@@ -8,6 +8,11 @@ allocate nothing: the callers pass outputs they allocated.
 
 ``launch_counts`` holds one plain integer per kernel, raised by one at
 each launch, so that a run can show which kernels it went through.
+
+A wrapper that refuses a launch raises ``KernelLaunchError``, never
+``ValueError``: the codecs fall back to their scalar path on a
+``ValueError`` of the pipelines, and a kernel that cannot run must not
+send the work to the host unnoticed.
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ launch_counts = {"fdct8x8_quant": 0, "dwt53_fwd_pass": 0,
                  "dwt53_inv_pass": 0}
 
 _lib = None
+
+
+class KernelLaunchError(RuntimeError):
+    """A kernel wrapper refused its arguments and launched nothing."""
 
 
 def reset_launch_counts() -> None:
@@ -108,11 +117,12 @@ def _check(lib, err: int, name: str) -> None:
 
 def _require(x: torch.Tensor, dtype: torch.dtype, name: str) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got {x.device}")
+        raise KernelLaunchError(f"{name}: expected a CUDA tensor, got "
+                                f"{x.device}")
     if x.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {x.dtype}")
+        raise KernelLaunchError(f"{name}: expected {dtype}, got {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+        raise KernelLaunchError(f"{name}: expected a contiguous tensor")
 
 
 def _stream(x: torch.Tensor):
@@ -136,11 +146,11 @@ def dwt53_pass(x: torch.Tensor, n_lines: int, line_stride: int,
     shared memory; the caller keeps ``dwt53_smem_bytes`` of them within
     ``SMEM_MAX_BYTES``.
     """
-    _require(x, torch.int32, "dwt53_pass")
     if dwt53_smem_bytes(lines_per_block, line_len) > SMEM_MAX_BYTES:
-        raise ValueError(f"dwt53_pass: {lines_per_block} lines of "
-                         f"{line_len} samples exceed {SMEM_MAX_BYTES} "
-                         "bytes of shared memory")
+        raise KernelLaunchError(f"dwt53_pass: {lines_per_block} lines of "
+                                f"{line_len} samples exceed "
+                                f"{SMEM_MAX_BYTES} bytes of shared memory")
+    _require(x, torch.int32, "dwt53_pass")
     nb = x.shape[0]
     if nb == 0 or n_lines == 0 or line_len == 0:
         return
@@ -165,14 +175,15 @@ def fdct8x8_quant(x: torch.Tensor, out: torch.Tensor, d: torch.Tensor,
     _require(d, torch.float32, "fdct8x8_quant d")
     _require(qtable, torch.float32, "fdct8x8_quant qtable")
     if x.dim() != 3 or out.shape != x.shape:
-        raise ValueError(f"fdct8x8_quant: bad shapes {tuple(x.shape)} → "
-                         f"{tuple(out.shape)}")
+        raise KernelLaunchError(f"fdct8x8_quant: bad shapes "
+                                f"{tuple(x.shape)} → {tuple(out.shape)}")
     b, h, w = x.shape
     if h % 8 or w % 8:
-        raise ValueError(f"fdct8x8_quant: H and W must be multiples of 8, "
-                         f"got {h}×{w}")
+        raise KernelLaunchError(f"fdct8x8_quant: H and W must be multiples "
+                                f"of 8, got {h}×{w}")
     if d.numel() != 64 or qtable.numel() != 64:
-        raise ValueError("fdct8x8_quant: d and qtable need 64 entries")
+        raise KernelLaunchError("fdct8x8_quant: d and qtable need 64 "
+                                "entries")
     if b == 0 or h == 0 or w == 0:
         return
     lib = _load()

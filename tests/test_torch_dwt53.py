@@ -204,5 +204,9 @@ def test_lanes_by_device():
     with pytest.raises(ValueError, match="no lane"):
         port.fwd53_multilevel_(torch.zeros((8, 8), dtype=torch.int32,
                                            device="meta"), 1)
-    with pytest.raises(ValueError, match="CUDA tensor"):
+    with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
         _kernels.dwt53_pass(x, 8, 8, 8, 1, 1, True, False)
+    # a line longer than shared memory holds (DICOM allows 65535 columns)
+    long = torch.zeros((1, 1, 60000), dtype=torch.int32)
+    with pytest.raises(_kernels.KernelLaunchError, match="shared memory"):
+        _kernels.dwt53_pass(long, 1, 60000, 60000, 1, 1, True, False)

@@ -95,7 +95,7 @@ def test_constants_match_reference():
 def test_kernel_wrapper_rejects_cpu_tensors():
     x = torch.zeros((1, 8, 8), dtype=torch.int32)
     d, q = port.tables_from_numpy(port._D_np, port.LUMA_QUANT)
-    with pytest.raises(ValueError, match="CUDA tensor"):
+    with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
         _kernels.fdct8x8_quant(x, torch.empty_like(x), d.reshape(64), q, 128)
     with pytest.raises(ValueError, match="no lane"):
         fdct8x8_quant(x.to("meta"), q, 128)

@@ -3,7 +3,9 @@
 The machine with the GPU has no jax, and any module of the JAX package
 imports jax through the package's __init__. So the port, its device bench
 and chip_smoke.py must import neither, even transitively. A subprocess
-blocks ``jax`` before anything is imported and runs the CPU slice once.
+blocks ``jax`` before anything is imported and runs the CPU slice once:
+the device stages, the device bench, and encode and decode through the
+port's codec registry.
 """
 
 import subprocess
@@ -46,6 +48,24 @@ q = scale_quant_table(LUMA_QUANT, 90, 255)
 assert encode_plane_blocks(gray[0], q, 2048).shape == (5, 7, 8, 8)
 q8, _ = device_bench.dwt53_stats(gray, "plain")
 assert device_bench.idwt53(q8, "plain").shape == gray.shape
+
+# the codec path: 3 frames through the port's own registry, .90 and .91
+import go_dicom_codec_torch as gdc
+registry = gdc.make_registry(torch.device("cpu"))
+info = gdc.FrameInfo(width=40, height=24, bits_allocated=16, bits_stored=12)
+frames = (np.cumsum(rng.integers(-9, 10, (3, 24, 40)), axis=2) % 4096)
+for uid in (gdc.uids.JPEG_2000_LOSSLESS, gdc.uids.JPEG_2000_LOSSY):
+    src = gdc.MemoryPixelData(info=info)
+    for f in frames:
+        src.add_frame(f.astype("<u2").tobytes())
+    enc = gdc.MemoryPixelData(info=info, encapsulated=True)
+    registry.get_codec(uid).encode(src, enc)
+    dec = gdc.MemoryPixelData(info=info)
+    registry.get_codec(uid).decode(enc, dec)
+    for i, f in enumerate(frames):
+        got = np.frombuffer(dec.get_frame(i), "<u2").astype(np.int64)
+        tol = 0 if uid == gdc.uids.JPEG_2000_LOSSLESS else 64
+        assert np.abs(got - f.reshape(-1)).max() <= tol, uid
 
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith(("jax.", "jaxlib", "go_dicom_codec_tpu"))))

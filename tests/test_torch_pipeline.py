@@ -1,11 +1,12 @@
-"""Port parity: the device half of the J2K lossless pipeline.
+"""Port parity: the J2K pipelines and their device stages.
 
 Each device stage of the port is bit-exact against the JAX stage, and the
-slice closes end to end through the JAX package's own host seams: the
+stages close end to end through the JAX package's own host seams: the
 port's coefficients go into J2KEncoder.encode(precomputed_tiles=...) and
 must give the same codestream bytes as the reference encoder; the
 reference's decode_to_packed followed by the port's decode stage must give
-the source pixels back.
+the source pixels back. The port's double-buffered pipelines then run
+against the reference's over the matrix of tests/test_pipeline_edges.py.
 """
 
 import numpy as np
@@ -16,8 +17,8 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 
 from go_dicom_codec_tpu import pipeline as ref
-from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KEncodeParams, J2KEncoder,
-                                                decode_to_packed)
+from go_dicom_codec_tpu.codecs.jpeg2000 import (J2KDecoder, J2KEncodeParams,
+                                                J2KEncoder, decode_to_packed)
 from go_dicom_codec_torch import pipeline as port
 from go_dicom_codec_torch.ops.dwt53 import fwd53_multilevel_
 from go_dicom_codec_torch.ops.mct import dc_level_shift, rct_forward
@@ -139,3 +140,177 @@ def test_codestream_through_reference_seams(rgb, rng):
         torch.as_tensor(np.asarray(packed))[None], cod.num_levels, 0, 0,
         bits, False, bool(cod.mct), narrow=True)
     _eq(out[0].to(torch.int32).numpy(), np.moveaxis(pixels, -1, 0))
+
+
+# ---- the double-buffered pipelines against the reference's ----------------
+# The matrix of tests/test_pipeline_edges.py: both packages encode the same
+# frames with the same engine; lossless bytes must be identical and the
+# decodes bit-identical to the reference's and to the source.
+
+CPU = torch.device("cpu")
+
+
+def _walk(rng, shape, bits=12):
+    return (np.cumsum(rng.integers(-9, 10, shape), axis=-2 if len(shape) == 4
+                      else -1) % (1 << bits)).astype(np.int32)
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+@pytest.mark.parametrize("n,chunk", [(1, 8), (3, 2), (8, 8), (9, 4)])
+def test_pipelines_match_reference(n, chunk, engine, rng):
+    frames = _walk(rng, (n, 48, 40))
+    want = ref.encode_frames_pipelined(frames, bit_depth=12, levels=2,
+                                       chunk=chunk, device=engine)
+    got = port.encode_frames_pipelined(frames, bit_depth=12, levels=2,
+                                       chunk=chunk, engine=engine,
+                                       device=CPU)
+    assert got == want
+    dec = port.decode_frames_pipelined(want, chunk=chunk, engine=engine,
+                                       device=CPU)
+    ref_dec = ref.decode_frames_pipelined(want, chunk=chunk, device=engine)
+    assert len(dec) == n
+    for d, r, f in zip(dec, ref_dec, frames):
+        assert d.dtype == np.int32 and d.shape == (48, 40, 1)
+        _eq(d, r)
+        _eq(d[..., 0], f)
+
+
+@pytest.mark.parametrize("case", ["8bit", "odd", "rgb8", "rgb12-odd",
+                                  "signed12"])
+def test_pipeline_shapes_and_depths_match_reference(case, rng):
+    bits, signed = 12, False
+    if case == "8bit":
+        frames, bits = rng.integers(0, 256, (3, 32, 32)).astype(np.int32), 8
+    elif case == "odd":
+        frames = _walk(rng, (2, 33, 47))
+    elif case == "rgb8":
+        frames, bits = _walk(rng, (3, 24, 40, 3), 8), 8
+    elif case == "rgb12-odd":
+        frames = _walk(rng, (2, 21, 35, 3))
+    else:
+        frames, signed = _walk(rng, (3, 32, 24)) - 2048, True
+    want = ref.encode_frames_pipelined(frames, bit_depth=bits, signed=signed,
+                                       levels=3)
+    got = port.encode_frames_pipelined(frames, bit_depth=bits, signed=signed,
+                                       levels=3, device=CPU)
+    assert got == want
+    dec = port.decode_frames_pipelined(got, device=CPU)
+    for d, r, f in zip(dec, ref.decode_frames_pipelined(want), frames):
+        _eq(d, r)
+        _eq(d.reshape(f.shape), f)
+
+
+def test_pipeline_int16_overflow_redo(monkeypatch, rng):
+    """A narrow readback whose max |coeff| exceeds the int16 bound is
+    recomputed in int32 from the chunk's device input (no real 13-bit
+    frame overflows, so the bound is lowered here)."""
+    frames = _walk(rng, (5, 32, 32))
+    want = ref.encode_frames_pipelined(frames, bit_depth=12, levels=3)
+    reruns = []
+    real = port._Lane.rerun
+
+    def counting(self, chunk, stage):
+        reruns.append(chunk)
+        return real(self, chunk, stage)
+
+    monkeypatch.setattr(port, "INT16_MAX", 100)
+    monkeypatch.setattr(port._Lane, "rerun", counting)
+    got = port.encode_frames_pipelined(frames, bit_depth=12, levels=3,
+                                       chunk=2, engine="device", device=CPU)
+    assert got == want
+    assert len(reruns) == 3          # every chunk of 2, 2, 1 frames
+
+
+@pytest.mark.parametrize("engine", ["device", "host"])
+@pytest.mark.parametrize("reduce", [1, 2])
+def test_pipeline_reduce_matches_reference(engine, reduce, rng):
+    frames = _walk(rng, (3, 40, 36))
+    streams = ref.encode_frames_pipelined(frames, bit_depth=12, levels=3)
+    want = ref.decode_frames_pipelined(streams, device=engine,
+                                       reduce=reduce)
+    got = port.decode_frames_pipelined(streams, engine=engine,
+                                       reduce=reduce, device=CPU)
+    for g, w in zip(got, want):
+        _eq(g, w)
+
+
+@pytest.mark.parametrize("ncomp,engine", [(1, "device"), (1, "host"),
+                                          (3, "device"), (3, "host")])
+def test_pipeline_lossy_decode_within_one(ncomp, engine, rng):
+    """Irreversible streams: host dequant + 9/7 inverse on either engine,
+    within one rounding tie of the reference's scalar decoder (and of its
+    pipeline), clipped to the declared range."""
+    shape = (4, 48, 64) if ncomp == 1 else (4, 48, 64, 3)
+    frames = (np.cumsum(rng.integers(-9, 10, shape), axis=2)
+              % 256).astype(np.int32)
+    enc = J2KEncoder(J2KEncodeParams(num_levels=3, lossless=False,
+                                     quality=90))
+    streams = [enc.encode(f, 64, 48, ncomp, 8) for f in frames]
+    got = port.decode_frames_pipelined(streams, engine=engine, device=CPU)
+    piped = ref.decode_frames_pipelined(streams, device=engine)
+    for g, p, s in zip(got, piped, streams):
+        scalar = J2KDecoder().decode(s)[0]
+        assert np.abs(g.astype(np.int64) - scalar).max() <= 1
+        assert np.abs(g.astype(np.int64) - p).max() <= 1
+        assert g.min() >= 0 and g.max() <= 255
+
+
+def test_pipeline_decode_rejects_mixed_transforms(rng):
+    img = rng.integers(0, 256, (32, 32)).astype(np.int32)
+    s_ll = J2KEncoder(J2KEncodeParams(num_levels=2)).encode(img, 32, 32, 1, 8)
+    s_ir = J2KEncoder(J2KEncodeParams(num_levels=2, lossless=False)
+                      ).encode(img, 32, 32, 1, 8)
+    with pytest.raises(ValueError, match="equal-geometry"):
+        port.decode_frames_pipelined([s_ll, s_ir], device=CPU)
+
+
+def test_pipeline_empty_and_bad_engine():
+    assert port.encode_frames_pipelined(np.zeros((0, 16, 16), np.int32),
+                                        bit_depth=12, device=CPU) == []
+    assert port.decode_frames_pipelined([], device=CPU) == []
+    assert port.decode_frames_pipelined([], return_info=True,
+                                        device=CPU) == ([], None)
+    with pytest.raises(ValueError, match="engine"):
+        port.encode_frames_pipelined(np.zeros((2, 8, 8), np.int32),
+                                     bit_depth=8, engine="tpu", device=CPU)
+
+
+def test_lane_refuses_to_overwrite_unread_results():
+    lane = port._Lane(CPU)
+    first = lane.submit(lambda x: x + 1, np.arange(4, dtype=np.int32))
+    lane.submit(lambda x: x + 2, np.arange(4, dtype=np.int32))
+    with pytest.raises(RuntimeError, match="not read"):
+        lane.submit(lambda x: x, np.arange(4, dtype=np.int32))
+    _eq(first.result()[0], np.arange(4) + 1)
+
+
+def test_transfer_policy_measured_fake_regimes(monkeypatch):
+    """The engine choice comes from a measured round trip per device; fake
+    both regimes on a CUDA device object (no card is touched)."""
+    from go_dicom_codec_torch.utils import profiling as prof
+
+    monkeypatch.setattr(port, "_POLICY", {})
+    gpu = torch.device("cuda", 0)
+    pol = port.transfer_policy(gpu, force_remeasure=True,
+                               _probe_roundtrip=lambda: 0.2,
+                               _probe_host=lambda: 3.0)
+    assert pol["prefer_device"] is True
+    assert prof.EVENTS["pipeline.transfer_policy"]["prefer_device"] is True
+    assert port.prefer_batched_device(gpu) is True
+    assert port._tunnel_backend(gpu) is False
+
+    pol = port.transfer_policy(gpu, force_remeasure=True,
+                               _probe_roundtrip=lambda: 35.0,
+                               _probe_host=lambda: 3.0)
+    assert pol["prefer_device"] is False
+    assert port.prefer_batched_device(gpu) is False
+    assert port._tunnel_backend(gpu) is True
+    assert port.transfer_policy(gpu) is pol          # cached
+
+    # the CPU: no transfer, no probes; the device engine runs there
+    pol = port.transfer_policy(CPU, force_remeasure=True,
+                               _probe_roundtrip=lambda: 1 / 0,
+                               _probe_host=lambda: 1 / 0)
+    assert pol["prefer_device"] is False and pol["reason"] == "cpu device"
+    assert port._tunnel_backend(CPU) is False
+    assert port.prefer_batched_device(CPU) is False
