@@ -8,29 +8,42 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 2. builds every kernel of ``go_dicom_codec_torch/csrc`` with nvcc;
 3. holds each kernel against its plain torch version on the card:
    the fused DCT + quant at [32, 512, 512] (|Δ| ≤ 1 on < 0.5 % of the
-   coefficients: float summation order differs), the 5/3 lifting passes
-   bit-exact at [32, 512, 512] × 5 levels and on small odd cases;
+   coefficients: float summation order differs); the fused forward stage
+   bit-exact at [32, 512, 512] uint16 in all three epilogues; the fused
+   forward 5/3, the forward and inverse lifting passes bit-exact at
+   [32, 512, 512] × 5 levels and on small odd cases at every origin, the
+   stage's epilogues on those too;
 4. drives the main path at full size: 32 gray 512×512 12-bit frames and 8
    RGB 512×512 8-bit frames through encode transform → narrow fetch →
-   decode stage, each bit-exact back to its input, then the device bench;
-   every kernel must have launched in that run;
+   decode stage, each bit-exact back to its input; frames with a side of
+   58111 samples (the most the fused stage's shared memory holds) and of
+   60001 and 65535 (the lifting passes' long-line route) forward and back,
+   bit-exact against the plain lane; then the device bench; every kernel,
+   and the long-line route of both lifting passes, must have launched in
+   that run;
 5. drives the codec path on the card through ``make_registry(cuda:0)``,
    once the native T1/T2 library (g++, built beside the nvcc build) is
    loaded: 32 gray 512×512 12-bit frames and 8 RGB 512×512 8-bit frames
    through .90, 8 gray 12-bit frames through .91. Lossless codestreams
    must equal the native host lane's byte for byte and decode bit-exact,
-   the lossy decode lie within ±1 of the host lane's; both lifting
-   kernels must launch inside the registry calls and the pipelines must
-   have run on the device engine (their ``pipeline.*`` events; the
-   adapters' scalar fallback would hide a failure). Part-2
+   the lossy decode lie within ±1 of the host lane's; the fused forward
+   stage must launch once per encode chunk and no forward lifting pass
+   beside it, the inverse lifting passes inside the decode, and the
+   pipelines must have run on the device engine (their ``pipeline.*``
+   events; the adapters' scalar fallback would hide a failure). Two gray
+   16 × 60001 frames round-trip through .90 the same way, through the
+   lifting passes' long-line route. Part-2
    matrix streams (.92/.93) take the scalar codec's device branches and
    must equal the same codec on the CPU. It also forces the
    int16-overflow redo once. Encode and decode frames/s of the
    registry path and of the same calls through ``make_registry(cuda:0,
    engine="host")``, the device's share of the encode and the lossy PSNR
    go on lines of their own;
-6. prints the device bench rows, one JSON object of kernel results, and as
-   its last line ``{"ok": true, "device": {...}}``.
+6. prints the device bench rows, one JSON object of kernel results (the
+   lifting passes' with a ``long_route`` entry: its launches in the main
+   path and the level-1 pass of [2, 16, 65535] and [2, 65535, 16] timed
+   against its plain version and bound), and as its last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits non-zero and prints no ok line. Imports no JAX.
 """
@@ -49,7 +62,8 @@ from go_dicom_codec_torch import _kernels, native
 from go_dicom_codec_torch import pipeline as P
 from go_dicom_codec_torch.codecs import j2k_adapters
 from go_dicom_codec_torch.ops.dct8x8 import LUMA_QUANT, scale_quant_table
-from go_dicom_codec_torch.ops.dwt53 import (fwd53_multilevel_,
+from go_dicom_codec_torch.ops.dwt53 import (_level_passes, _level_windows,
+                                            fwd53_multilevel_,
                                             fwd53_multilevel_plain_,
                                             inv53_multilevel_,
                                             inv53_multilevel_plain_)
@@ -57,6 +71,7 @@ from go_dicom_codec_torch.ops.dwt97 import fwd97_multilevel, inv97_multilevel
 from go_dicom_codec_torch.ops.fdct8x8_quant import (encode_plane_blocks,
                                                     fdct8x8_quant,
                                                     fdct8x8_quant_plain)
+from go_dicom_codec_torch.ops.j2k_fwd_stage import fwd_stage, fwd_stage_plain
 from go_dicom_codec_torch.ops.mct import dc_level_shift
 from go_dicom_codec_torch.tools import device_bench
 from go_dicom_codec_torch.utils import profiling
@@ -73,7 +88,15 @@ SOURCES = {
                        "go_dicom_codec_tpu/ops/dwt53.py:71"),
     "dwt53_inv_pass": ("cuda", "go_dicom_codec_torch/csrc/dwt53.cu",
                        "go_dicom_codec_tpu/ops/dwt53.py:112"),
+    "j2k_fwd_stage": ("cuda", "go_dicom_codec_torch/csrc/j2k_fwd_stage.cu",
+                      "go_dicom_codec_tpu/pipeline.py:43"),
 }
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12      # H100 SXM outside the tensor cores
+# the longest lines the fused stage holds, then lines that take the
+# lifting passes' long-line route
+LONG_SHAPES = ((1, 8, 58111), (1, 58111, 8), (1, 8, 60001), (1, 60001, 8),
+               (2, 16, 65535))
 
 
 def check(cond: bool, what: str) -> None:
@@ -101,19 +124,44 @@ def compare_dct(x, qt) -> int:
 
 
 def compare_dwt(x: torch.Tensor, levels: int, x0: int = 0,
-                y0: int = 0) -> tuple:
-    """Kernel lane against plain lane, forward and inverse; bit-exact.
-    Returns (forward max |d|, inverse max |d|)."""
-    fwd_k = fwd53_multilevel_(x.clone(), levels, x0, y0)
+                y0: int = 0) -> dict:
+    """The fused forward stage and the forward lifting passes against the
+    plain lane, the inverse lifting passes against the plain inverse, and
+    the stage's narrow and stats epilogues against their plain version;
+    all bit-exact. Returns each kernel's max |d|."""
     fwd_p = fwd53_multilevel_plain_(x.clone(), levels, x0, y0)
-    inv_k = inv53_multilevel_(fwd_p.clone(), levels, x0, y0)
-    inv_p = inv53_multilevel_plain_(fwd_p.clone(), levels, x0, y0)
-    errs = max_abs_diff(fwd_k, fwd_p), max_abs_diff(inv_k, inv_p)
-    check(errs == (0, 0) and torch.equal(inv_k, x),
+    errs = {"j2k_fwd_stage": max_abs_diff(
+                fwd53_multilevel_(x.clone(), levels, x0, y0), fwd_p),
+            "dwt53_fwd_pass": max_abs_diff(device_bench.fwd53_passes_(
+                x.clone(), levels, x0, y0), fwd_p),
+            "dwt53_inv_pass": max_abs_diff(
+                inv53_multilevel_(fwd_p.clone(), levels, x0, y0), x)}
+    for epilogue in ("narrow", "stats"):
+        got = fwd_stage(x, 7, levels, x0, y0, epilogue, 16)
+        want = fwd_stage_plain(x, 7, levels, x0, y0, epilogue, 16)
+        errs["j2k_fwd_stage"] = max(errs["j2k_fwd_stage"], *(
+            max_abs_diff(g, w) for g, w in zip(got, want)))
+    check(inv53_multilevel_plain_(fwd_p, levels, x0, y0).equal(x)
+          and not any(errs.values()),
           f"5/3 lanes differ: shape {tuple(x.shape)} levels {levels} "
-          f"origin ({x0}, {y0}), max |d| forward {errs[0]}, inverse "
-          f"{errs[1]}")
+          f"origin ({x0}, {y0}), max |d| {errs}")
     return errs
+
+
+def compare_stage(x16: torch.Tensor) -> int:
+    """The fused forward stage of the pipelines' uint16 frames against its
+    plain version, in all three epilogues; bit-exact."""
+    err = 0
+    for epilogue in ("coeffs", "narrow", "stats"):
+        got = fwd_stage(x16, 2048, LEVELS, epilogue=epilogue)
+        want = fwd_stage_plain(x16, 2048, LEVELS, epilogue=epilogue)
+        if epilogue == "coeffs":
+            got, want = (got,), (want,)
+        err = max(err, *(max_abs_diff(g, w) for g, w in zip(got, want)))
+    check(err == 0, f"j2k_fwd_stage differs from its plain version: {err}")
+    print(f"j2k_fwd_stage == plain at {tuple(x16.shape)} uint16, "
+          f"coeffs, narrow and stats")
+    return err
 
 
 def compare_dwt_all(rng, dev) -> dict:
@@ -128,9 +176,34 @@ def compare_dwt_all(rng, dev) -> dict:
             cases += [(odd[:2, :h, :w].contiguous(), levels, x0, y0)
                       for h in range(1, 9) for w in range(1, 9)]
     errs = [compare_dwt(*case) for case in cases]
-    print(f"5/3 kernel lane == plain lane on {len(cases)} cases")
-    return {"dwt53_fwd_pass": max(e[0] for e in errs),
-            "dwt53_inv_pass": max(e[1] for e in errs)}
+    print(f"5/3 fused stage, lifting passes and plain lane agree on "
+          f"{len(cases)} cases")
+    return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def long_lines(rng, dev) -> None:
+    """Frames with a side of 58111 samples (the fused stage, at Hopper's
+    whole shared memory a block) and over it (the lifting passes'
+    long-line route), forward and back, bit-exact against the plain lane;
+    then the pipelines' narrow stage on the longest."""
+    for shape in LONG_SHAPES:
+        x = torch.as_tensor(rng.integers(-2048, 2048, shape, dtype=np.int32),
+                            device=dev)
+        fwd = fwd53_multilevel_(x.clone(), LEVELS)
+        check(fwd.equal(fwd53_multilevel_plain_(x.clone(), LEVELS)),
+              f"long-line forward {shape} differs from the plain lane")
+        inv = inv53_multilevel_(fwd.clone(), LEVELS)
+        check(inv.equal(inv53_multilevel_plain_(fwd.clone(), LEVELS))
+              and inv.equal(x), f"long-line inverse {shape} differs")
+    x16 = torch.as_tensor(rng.integers(0, 1 << 12, LONG_SHAPES[-1],
+                                       dtype=np.uint16), device=dev)
+    got = P._pipeline_device_stage(x16, 12, False, LEVELS, narrow=True)
+    want = fwd_stage_plain(x16, 2048, LEVELS, epilogue="narrow")
+    check(got[0].equal(want[0]) and got[1].equal(want[1]),
+          "the narrow stage of a long-line frame differs")
+    print(f"long lines {list(LONG_SHAPES)}: forward, inverse and the narrow "
+          f"stage == plain lane; long-route launches "
+          f"{json.dumps(_kernels.long_route_counts)}")
 
 
 def round_trip_gray(rng, dev) -> None:
@@ -168,14 +241,29 @@ def round_trip_rgb(rng, dev) -> None:
     print(f"rgb round trip [{RGB_FRAMES}, 3, {H}, {W}] bit-exact")
 
 
-def time_dwt(dev, rng) -> dict:
-    """Kernel and plain ms per lifting pass: the time of the 5-level
-    forward or inverse transform of [B, H, W], in place on one buffer,
-    over the number of passes it launches."""
+def bound(nbytes: float, nops: float) -> tuple:
+    """The least time the card could take: (ms, "bytes" or "operations"),
+    the bytes over HBM's rate against the integer and float operations
+    over the float32 rate outside the tensor cores."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops) * 1e3, by
+
+
+def time_kernels(dev, rng, dct_ms: tuple) -> dict:
+    """Each kernel's (ms, plain ms, bound ms, bound by) at the main path's
+    shapes. The lifting passes: the 5-level transform of [B, H, W] through
+    them, in place on one buffer, over the passes it launches (each pass
+    reads and writes its window once, ~4 operations a sample). The fused
+    stage: the pipelines' narrow stage of [B, H, W] uint16 (reads 2 bytes
+    and writes 2 a sample; ~4 operations a sample and pass, 3 in the
+    epilogue). The DCT: int32 in and out, 35 operations a sample."""
     buf = torch.as_tensor(rng.integers(-2048, 2048, (B, H, W),
                                        dtype=np.int32), device=dev)
+    window = sum(B * h * w * len(_level_passes(h, w, True, True))
+                 for w, h, _, _ in _level_windows(W, H, LEVELS, 0, 0))
     t = {}
-    for name, k, p in (("dwt53_fwd_pass", fwd53_multilevel_,
+    for name, k, p in (("dwt53_fwd_pass", device_bench.fwd53_passes_,
                         fwd53_multilevel_plain_),
                        ("dwt53_inv_pass", inv53_multilevel_,
                         inv53_multilevel_plain_)):
@@ -186,8 +274,33 @@ def time_dwt(dev, rng) -> dict:
         p_ms = device_bench.time_ms(lambda: p(buf, LEVELS))[0]
         print(f"{name}: {n} passes per {LEVELS}-level transform, "
               f"{k_ms:.4f} ms kernel, {p_ms:.4f} ms plain")
-        t[name] = (k_ms / n, p_ms / n)
+        t[name] = (k_ms / n, p_ms / n, *bound(8 * window / n, 4 * window / n))
+    x16 = buf.to(torch.uint16)
+    k_ms = device_bench.time_ms(
+        lambda: fwd_stage(x16, 2048, LEVELS, epilogue="narrow"))[0]
+    p_ms = device_bench.time_ms(
+        lambda: fwd_stage_plain(x16, 2048, LEVELS, epilogue="narrow"))[0]
+    t["j2k_fwd_stage"] = (k_ms, p_ms, *bound(4 * x16.numel() + 4,
+                                             4 * window + 3 * x16.numel()))
+    t["fdct8x8_quant"] = (*dct_ms, *bound(8 * B * H * W, 35 * B * H * W))
     return t
+
+
+def time_long_route() -> dict:
+    """The lifting passes' long-line route alone: the level-1 pass along
+    the long side of each device_bench.LONG_SHAPES frame, its kernel lane
+    (the window's torch copy and one launch) and plain version timed as
+    ``time_kernels`` times a pass, against its bound (the window read and
+    written once, ~4 operations a sample). {name: {shape key: times}}."""
+    out = {"dwt53_fwd_pass": {}, "dwt53_inv_pass": {}}
+    for s in device_bench.long_pass_steps(SEED):
+        k_ms = device_bench.time_ms(s["kernel"])[0]
+        p_ms = device_bench.time_ms(s["plain"])[0]
+        b_ms, b_by = bound(8 * s["samples"], 4 * s["samples"])
+        name = "dwt53_inv_pass" if s["inverse"] else "dwt53_fwd_pass"
+        out[name][f"{s['axis']} {s['shape']}"] = {
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+    return out
 
 
 # ---- the codec path -----------------------------------------------------
@@ -328,6 +441,7 @@ def codec_phase(rng, dev, card: str) -> dict:
         check(runs == {"pipeline.encode": (1, "device"),
                        "pipeline.decode": (1, "device")},
               f"{name}: the pipelines did not run on the device {runs}")
+        chunks = profiling.EVENTS["pipeline.encode"]["chunks"]
         host_streams, host_dec = host_lane(frames, bits, dev, streams)
         check(streams == host_streams,
               f"{name}: registry codestreams differ from the host lane's")
@@ -335,14 +449,34 @@ def codec_phase(rng, dev, card: str) -> dict:
               f"{name}: registry decode is not bit-exact")
         check(np.array_equal(host_dec.reshape(frames.shape), frames),
               f"{name}: host lane decode is not bit-exact")
-        check(lc["encode"]["dwt53_fwd_pass"] > 0,
-              f"{name}: dwt53_fwd_pass never launched inside the encode")
+        check(lc["encode"]["j2k_fwd_stage"] == chunks
+              and lc["encode"]["dwt53_fwd_pass"] == 0,
+              f"{name}: the encode did not run one j2k_fwd_stage launch a "
+              f"chunk ({chunks}) and no forward lifting pass")
         check(lc["decode"]["dwt53_inv_pass"] > 0,
               f"{name}: dwt53_inv_pass never launched inside the decode")
         launches[name] = lc
         print(f"{name} .90 [{n}, {H}, {W}]: codestreams == host lane, "
               f"decode bit-exact; launches {json.dumps(lc)}")
         measured[name] = rates(host_checked(calls), n)
+
+    # frames with a side over 58111 samples: the lifting passes' long-line
+    # route inside the registry calls, byte-identical to the host lane
+    frames = phantom(rng, 2, 12, shape=(16, 60001))
+    streams, decoded, lc, _, runs = registry_round_trip(
+        registry, host_registry, gdc.uids.JPEG_2000_LOSSLESS, frames, 12,
+        False)
+    host_streams, host_dec = host_lane(frames, 12, dev, streams)
+    check(runs == {"pipeline.encode": (1, "device"),
+                   "pipeline.decode": (1, "device")}
+          and streams == host_streams and np.array_equal(decoded, frames)
+          and np.array_equal(host_dec.reshape(frames.shape), frames),
+          f"long lines: the .90 round trip failed {runs}")
+    check(lc["encode"]["dwt53_fwd_pass"] > 0
+          and lc["decode"]["dwt53_inv_pass"] > 0,
+          f"long lines: the lifting passes did not launch {lc}")
+    print(f"long-line .90 [2, 16, 60001]: codestreams == host lane, decode "
+          f"bit-exact; launches {json.dumps(lc)}")
 
     # lossy .91: encode runs the native host 9/7 per frame; the decode
     # pipeline runs dequant on the host and the 9/7 inverse on the card
@@ -389,7 +523,7 @@ def codec_phase(rng, dev, card: str) -> dict:
             dec = gdc.MemoryPixelData(info=info)
             _kernels.reset_launch_counts()
             reg.get_codec(uid).encode(src, enc, params)
-            fwd = _kernels.launch_counts["dwt53_fwd_pass"]
+            fwd = _kernels.launch_counts["j2k_fwd_stage"]
             _kernels.reset_launch_counts()
             reg.get_codec(uid).decode(enc, dec)
             inv = _kernels.launch_counts["dwt53_inv_pass"]
@@ -404,12 +538,12 @@ def codec_phase(rng, dev, card: str) -> dict:
                              - f.reshape(-1)).max())
                   for d, f in zip(card_dec, rgb))
         if uid == gdc.uids.JPEG_2000_MC_LOSSLESS:
-            check(fwd > 0 and inv > 0, f"{uid}: the lifting kernels did "
-                  f"not launch ({fwd}, {inv})")
+            check(fwd > 0 and inv > 0, f"{uid}: the forward stage or the "
+                  f"inverse lifting passes did not launch ({fwd}, {inv})")
             check(err <= 1, f"{uid}: round trip off by {err}")
         print(f"{uid} Part-2 matrix, 2 × [{H}, {W}, 3]: card == CPU, "
               f"codestreams and decode; max |decode - source| {err}; "
-              f"lifting launches {fwd} forward, {inv} inverse")
+              f"{fwd} forward stage launches, {inv} inverse passes")
 
     # the int16-overflow redo: no 12-bit frame overflows, so lower the
     # bound; the redo runs on the pipeline's side stream
@@ -433,11 +567,11 @@ def codec_phase(rng, dev, card: str) -> dict:
         src, gdc.MemoryPixelData(info=info, encapsulated=True)))
     encode()
     wall = timed(encode)[1]
-    dev_ms, top = device_bench.device_ms(encode, iters=1)
+    dev_ms, top, ops = device_bench.device_ms(encode, iters=1)
     share = dev_ms / (wall * 1e3)
     print(f"registry encode of [{B}, {H}, {W}]: wall {wall * 1e3:.1f} ms, "
-          f"device {dev_ms:.3f} ms, device share {share:.4f}; top "
-          f"kernels {json.dumps(top)}")
+          f"device {dev_ms:.3f} ms in {ops:.0f} device operations, device "
+          f"share {share:.4f}; top kernels {json.dumps(top)}")
     for name, r in measured.items():
         print("RATE " + json.dumps({"path": name, "card": card, **r}))
     return launches
@@ -466,17 +600,24 @@ def main() -> int:
     x = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W), dtype=np.int32),
                         device=dev)
     errs = {"fdct8x8_quant": compare_dct(x, qt), **compare_dwt_all(rng, dev)}
+    errs["j2k_fwd_stage"] = max(errs["j2k_fwd_stage"],
+                                compare_stage(x.to(torch.uint16)))
     torch.cuda.synchronize()
 
     _kernels.reset_launch_counts()
     t0 = time.perf_counter()
     round_trip_gray(rng, dev)
     round_trip_rgb(rng, dev)
+    long_lines(rng, dev)
     rows = device_bench.run_bench(B, H, W, seed=SEED, card=card)
     torch.cuda.synchronize()
     launches = dict(_kernels.launch_counts)
-    print(f"main path {time.perf_counter() - t0:.2f} s, launches {launches}")
+    long_launches = dict(_kernels.long_route_counts)
+    print(f"main path {time.perf_counter() - t0:.2f} s, launches {launches}, "
+          f"of them on the long-line route {long_launches}")
     check(all(n > 0 for n in launches.values()), "a kernel never launched")
+    check(all(n > 0 for n in long_launches.values()),
+          "a lifting pass never took its long-line route")
     for r in rows:
         print(json.dumps(r))
 
@@ -485,16 +626,22 @@ def main() -> int:
           f"{time.perf_counter() - t_native:.2f} s")
     codec_phase(rng, dev, card)
 
-    times = time_dwt(dev, rng)
     ms = {r["row"] + "/" + r["lane"]: r["ms"] for r in rows}
-    times["fdct8x8_quant"] = (ms["dct8x8_quant_pallas/kernel"],
-                              ms["dct8x8_quant_pallas/plain"])
+    times = time_kernels(dev, rng, (ms["dct8x8_quant_pallas/kernel"],
+                                    ms["dct8x8_quant_pallas/plain"]))
+    long_times = time_long_route()
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
+        k_ms, p_ms, b_ms, b_by = times[name]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": errs[name], "ms": times[name][0],
-                        "plain_ms": times[name][1]})
+                        "max_abs_err": errs[name], "ms": k_ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+        if name in long_times:
+            kernels[-1]["long_route"] = {"launches": long_launches[name],
+                                         **long_times[name]}
+    print(card)
     print(json.dumps({"kernels": kernels, "gpu": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,10 +4,13 @@ The sources are compiled with ``nvcc`` into one shared library with a
 plain C interface at first use (never at import) and bound with
 ``ctypes``. Every C entry returns ``cudaGetLastError()`` after its launch;
 a non-zero code raises here. Kernels run on PyTorch's current stream and
-allocate nothing: the callers pass outputs they allocated.
+allocate nothing: the callers pass outputs they allocated, and a wrapper
+that needs scratch takes it from torch.
 
 ``launch_counts`` holds one plain integer per kernel, raised by one at
-each launch, so that a run can show which kernels it went through.
+each launch, so that a run can show which kernels it went through;
+``long_route_counts`` counts the launches of the lifting passes that took
+their long-line route (a part of ``launch_counts``).
 
 A wrapper that refuses a launch raises ``KernelLaunchError``, never
 ``ValueError``: the codecs fall back to their scalar path on a
@@ -18,6 +21,8 @@ send the work to the host unnoticed.
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import os
 import shutil
 import subprocess
@@ -38,18 +43,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SMEM_MAX_BYTES = 232448
 
 launch_counts = {"fdct8x8_quant": 0, "dwt53_fwd_pass": 0,
-                 "dwt53_inv_pass": 0}
+                 "dwt53_inv_pass": 0, "j2k_fwd_stage": 0}
+long_route_counts = {"dwt53_fwd_pass": 0, "dwt53_inv_pass": 0}
 
 _lib = None
 
 
 class KernelLaunchError(RuntimeError):
-    """A kernel wrapper refused its arguments and launched nothing."""
+    """A kernel wrapper refused its arguments, or the card refused or
+    failed the launch."""
 
 
 def reset_launch_counts() -> None:
-    for k in launch_counts:
-        launch_counts[k] = 0
+    for counts in (launch_counts, long_route_counts):
+        for k in counts:
+            counts[k] = 0
 
 
 def _find_nvcc() -> str:
@@ -99,9 +107,14 @@ def _load():
         ctypes.c_float
     lib.gdct_dwt53_fwd_pass.argtypes = [p, ll, ll, i, ll, i, ll, i, i, p]
     lib.gdct_dwt53_inv_pass.argtypes = [p, ll, ll, i, ll, i, ll, i, i, p]
+    lib.gdct_dwt53_long_pass.argtypes = [p, p, ll, ll, i, ll, i, ll, ll, ll,
+                                         i, i, p]
     lib.gdct_fdct8x8_quant.argtypes = [p, p, p, p, ll, i, i, f, p]
+    lib.gdct_j2k_fwd_stage.argtypes = [p, i, p, i, i, i, i, p, i, i, i, p, p,
+                                       p, p, p]
     for fn in (lib.gdct_dwt53_fwd_pass, lib.gdct_dwt53_inv_pass,
-               lib.gdct_fdct8x8_quant):
+               lib.gdct_dwt53_long_pass, lib.gdct_fdct8x8_quant,
+               lib.gdct_j2k_fwd_stage):
         fn.restype = ctypes.c_int
     lib.gdct_error_string.argtypes = [ctypes.c_int]
     lib.gdct_error_string.restype = ctypes.c_char_p
@@ -112,7 +125,7 @@ def _load():
 def _check(lib, err: int, name: str) -> None:
     if err != 0:
         msg = lib.gdct_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+        raise KernelLaunchError(f"{name}: CUDA error {err} ({msg})")
 
 
 def _require(x: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -135,6 +148,39 @@ def dwt53_smem_bytes(lines_per_block: int, line_len: int) -> int:
     return lines_per_block * (line_len | 1) * 4
 
 
+def dwt53_long_line(line_len: int) -> bool:
+    """True when one line of ``line_len`` samples does not fit in a
+    block's shared memory (over 58111 samples)."""
+    return dwt53_smem_bytes(1, line_len) > SMEM_MAX_BYTES
+
+
+def dwt53_route(line_len: int, lines_per_block: int) -> str:
+    """The route of a lifting pass, from its shape alone: "smem" (lines in
+    shared memory) or "long" (each sample from a snapshot of the window,
+    for lines that do not fit)."""
+    if dwt53_long_line(line_len):
+        return "long"
+    if dwt53_smem_bytes(lines_per_block, line_len) > SMEM_MAX_BYTES:
+        raise KernelLaunchError(f"dwt53_pass: {lines_per_block} lines of "
+                                f"{line_len} samples exceed "
+                                f"{SMEM_MAX_BYTES} bytes of shared memory")
+    return "smem"
+
+
+def _window_snapshot(x: torch.Tensor, n_lines: int, line_stride: int,
+                     n: int, elem_stride: int):
+    """A copy of the pass's window of every plane, [n_lines * n] words a
+    plane in the array's own order (rows stay rows): (snapshot, its line
+    stride, its sample stride). Always a copy: a window that is the whole
+    array is contiguous, and ``.contiguous()`` would hand back ``x``."""
+    rows = elem_stride == 1
+    shape = (n_lines, n) if rows else (n, n_lines)
+    strides = (line_stride, 1) if rows else (elem_stride, line_stride)
+    view = x.as_strided((x.shape[0], *shape), (x.stride(0), *strides))
+    snap = view.clone(memory_format=torch.contiguous_format)
+    return (snap, n, 1) if rows else (snap, 1, n_lines)
+
+
 def dwt53_pass(x: torch.Tensor, n_lines: int, line_stride: int,
                line_len: int, elem_stride: int, lines_per_block: int,
                even: bool, inverse: bool) -> None:
@@ -144,25 +190,110 @@ def dwt53_pass(x: torch.Tensor, n_lines: int, line_stride: int,
     Line j's sample i sits at ``j * line_stride + i * elem_stride`` from
     the plane's origin. ``lines_per_block`` lines share one block's
     shared memory; the caller keeps ``dwt53_smem_bytes`` of them within
-    ``SMEM_MAX_BYTES``.
+    ``SMEM_MAX_BYTES``. A line too long for shared memory takes the
+    long-line route (``dwt53_route``): a torch copy of the window, then one
+    launch that computes every sample of the window from that copy.
     """
-    if dwt53_smem_bytes(lines_per_block, line_len) > SMEM_MAX_BYTES:
-        raise KernelLaunchError(f"dwt53_pass: {lines_per_block} lines of "
-                                f"{line_len} samples exceed "
-                                f"{SMEM_MAX_BYTES} bytes of shared memory")
+    route = dwt53_route(line_len, lines_per_block)
     _require(x, torch.int32, "dwt53_pass")
     nb = x.shape[0]
     if nb == 0 or n_lines == 0 or line_len == 0:
         return
     lib = _load()
     name = "dwt53_inv_pass" if inverse else "dwt53_fwd_pass"
-    fn = lib.gdct_dwt53_inv_pass if inverse else lib.gdct_dwt53_fwd_pass
+    args = (nb, x.shape[1] * x.shape[2], n_lines, line_stride, line_len,
+            elem_stride)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), nb, x.shape[1] * x.shape[2], n_lines,
-                 line_stride, line_len, elem_stride, lines_per_block,
-                 int(even), _stream(x))
+        if route == "long":
+            snap, snap_line, snap_elem = _window_snapshot(
+                x, n_lines, line_stride, line_len, elem_stride)
+            err = lib.gdct_dwt53_long_pass(x.data_ptr(), snap.data_ptr(),
+                                           *args, snap_line, snap_elem,
+                                           int(even), int(inverse),
+                                           _stream(x))
+            long_route_counts[name] += 1
+        else:
+            fn = (lib.gdct_dwt53_inv_pass if inverse
+                  else lib.gdct_dwt53_fwd_pass)
+            err = fn(x.data_ptr(), *args, lines_per_block, int(even),
+                     _stream(x))
     launch_counts[name] += 1
     _check(lib, err, name)
+
+
+# dtypes the forward stage reads as they are (others are cast to int32
+# first), with their code in csrc/j2k_fwd_stage.cu
+FWD_STAGE_DTYPES = {torch.uint16: 0, torch.int16: 1, torch.int32: 2}
+FWD_STAGE_EPILOGUES = {"coeffs": 0, "narrow": 1, "stats": 2}
+FWD_STAGE_MAX_PASSES = 64
+
+
+@functools.lru_cache(maxsize=256)
+def _stage_table(schedule: tuple):
+    """The pass table as the int64 array the kernel reads, once checked."""
+    if len(schedule) > FWD_STAGE_MAX_PASSES:
+        raise KernelLaunchError(f"j2k_fwd_stage: {len(schedule)} passes")
+    for (_, _, n, _, lpb, _) in schedule:
+        if dwt53_smem_bytes(lpb, n) > SMEM_MAX_BYTES:
+            raise KernelLaunchError(f"j2k_fwd_stage: {lpb} lines of {n} "
+                                    f"samples exceed shared memory")
+    flat = [int(v) for row in schedule for v in row]
+    return (ctypes.c_longlong * max(1, len(flat)))(*flat)
+
+
+def j2k_fwd_stage(src: torch.Tensor, coef: torch.Tensor, schedule,
+                  shift: int, epilogue: str, cb: int = 0,
+                  narrow: torch.Tensor = None, maxabs: torch.Tensor = None,
+                  cb_max: torch.Tensor = None,
+                  cb_bits: torch.Tensor = None) -> None:
+    """Launch the forward stage once: ``src`` [P, H, W] (a dtype of
+    ``FWD_STAGE_DTYPES``; may be ``coef`` itself) → widened, less
+    ``shift``, lifted through ``schedule`` into the int32 ``coef``
+    [P, H, W] → the epilogue's outputs.
+
+    ``schedule`` is the pass table: rows of (n_lines, line_stride, n,
+    elem_stride, lines_per_block, even) in the order the passes run, every
+    line within shared memory. Epilogue "narrow" writes ``narrow`` (int16
+    [P, H, W]) and ``maxabs`` (int32, one element); "stats" writes
+    ``cb_max`` and ``cb_bits`` (int32 [P, ceil(H/cb), ceil(W/cb)]).
+    """
+    _require(coef, torch.int32, "j2k_fwd_stage coef")
+    if src.dtype not in FWD_STAGE_DTYPES:
+        raise KernelLaunchError(f"j2k_fwd_stage: no route for {src.dtype}")
+    _require(src, src.dtype, "j2k_fwd_stage src")
+    if src.dim() != 3 or coef.shape != src.shape or src.numel() == 0:
+        raise KernelLaunchError(f"j2k_fwd_stage: bad shapes "
+                                f"{tuple(src.shape)} → {tuple(coef.shape)}")
+    if epilogue not in FWD_STAGE_EPILOGUES:
+        raise KernelLaunchError(f"j2k_fwd_stage: no epilogue {epilogue!r}")
+    table = _stage_table(tuple(schedule))
+    p, h, w = src.shape
+    if epilogue == "narrow":
+        want = {"narrow": (narrow, torch.int16, (p, h, w)),
+                "maxabs": (maxabs, torch.int32, (1,))}
+    elif epilogue == "stats":
+        if cb < 1:
+            raise KernelLaunchError(f"j2k_fwd_stage: code-block size {cb}")
+        grid = (p, -(-h // cb), -(-w // cb))
+        want = {"cb_max": (cb_max, torch.int32, grid),
+                "cb_bits": (cb_bits, torch.int32, grid)}
+    else:
+        want = {}
+    for name, (t, dtype, shape) in want.items():
+        _require(t, dtype, f"j2k_fwd_stage {name}")
+        if t.numel() != math.prod(shape):
+            raise KernelLaunchError(f"j2k_fwd_stage: {name} needs "
+                                    f"{shape}, got {tuple(t.shape)}")
+    ptrs = [0 if t is None else t.data_ptr()
+            for t in (narrow, maxabs, cb_max, cb_bits)]
+    lib = _load()
+    with torch.cuda.device(src.device):
+        err = lib.gdct_j2k_fwd_stage(
+            src.data_ptr(), FWD_STAGE_DTYPES[src.dtype], coef.data_ptr(), p,
+            h, w, int(shift), table, len(schedule),
+            FWD_STAGE_EPILOGUES[epilogue], int(cb), *ptrs, _stream(src))
+    launch_counts["j2k_fwd_stage"] += 1
+    _check(lib, err, "j2k_fwd_stage")
 
 
 def fdct8x8_quant(x: torch.Tensor, out: torch.Tensor, d: torch.Tensor,

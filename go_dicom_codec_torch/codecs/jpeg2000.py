@@ -227,10 +227,12 @@ def band_mb(qcd: j2k.QcdInfo, r: int, band: int, num_levels: int) -> int:
 
 
 class J2KEncoder:
-    def __init__(self, params: Optional[J2KEncodeParams] = None,
-                 device: Optional[torch.device] = None) -> None:
+    def __init__(self, params: Optional[J2KEncodeParams] = None, *,
+                 device: Optional[torch.device]) -> None:
         self.params = params or J2KEncodeParams()
-        self.device = device  # where the device stage runs
+        # where the device stage runs; None for an encoder that only takes
+        # precomputed tiles
+        self.device = device
 
     def encode(self, pixels, width: int, height: int, components: int,
                bit_depth: int, signed: bool = False,
@@ -1405,8 +1407,10 @@ class J2KDecoder:
 
     def __init__(self, resilient: bool = False,
                  block_decoder_factory=None, reduce: int = 0,
-                 window=None, device: Optional[torch.device] = None) -> None:
-        self.device = device  # where the inverse transforms run
+                 window=None, *, device: Optional[torch.device]) -> None:
+        # where the inverse transforms run; None for a decoder that stops
+        # before them (the packed host stages)
+        self.device = device
         self.resilient = resilient
         self.block_decoder_factory = block_decoder_factory
         # reduced-resolution decode (OpenJPEG -r analogue, beyond the
@@ -2140,8 +2144,8 @@ def pack_decoded_pixels(arr: np.ndarray, depth: int, signed: bool,
     return np.ascontiguousarray(arr.astype(dt)).tobytes()
 
 
-def decode_to_pixels(data: bytes, reduce: int = 0, window=None,
-                     device: Optional[torch.device] = None):
+def decode_to_pixels(data: bytes, reduce: int = 0, window=None, *,
+                     device: torch.device):
     """Decode a codestream → (pixel bytes, width, height, comps, depth,
     signed). reduce=R decodes at 1/2^R resolution; window=(x0,y0,x1,y1)
     decodes only that reference-grid region (J2KDecoder notes)."""
@@ -2216,7 +2220,7 @@ def decode_to_packed_tiles(data: bytes, reduce: int = 0):
                 "packed decode requires unsubsampled components")
     depth0, signed0, _, _ = siz.components[0]
     ntx, _ = siz.num_tiles
-    dec = J2KDecoder(reduce=reduce)
+    dec = J2KDecoder(reduce=reduce, device=None)
     out = []
     # validate EVERY tile's header-level constraints before any entropy
     # work — these checks only need cod_for/qcd_for, and raising late
@@ -2299,7 +2303,7 @@ def decode_to_component_tiles(data: bytes):
     gs_regions = _gs_roi_regions(cs)
     depth0, signed0, _, _ = siz.components[0]
     ntx, _ = siz.num_tiles
-    dec = J2KDecoder()
+    dec = J2KDecoder(device=None)
     out = []
     for tidx, tile in sorted(cs.tiles.items()):
         rect = siz.tile_rect(tidx % ntx, tidx // ntx)

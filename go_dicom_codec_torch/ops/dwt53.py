@@ -5,9 +5,11 @@ Port of ``go_dicom_codec_tpu/ops/dwt53.py:37-344``, in two lanes:
 - the plain lane (``fwd53_1d`` … ``inv53_2d``, ``*_multilevel_plain_``):
   torch functions with the reference's lifting arithmetic, shifted slices
   with edge clamps, on any device;
-- the kernel lane: for a CUDA tensor one 2D level is two launches of the
-  hand-written lifting kernels of ``csrc/dwt53.cu``, one along columns and
-  one along rows.
+- the kernel lane: for a CUDA tensor the whole forward transform is one
+  launch of ``csrc/j2k_fwd_stage.cu`` (``fwd_schedule`` is its pass
+  table); the inverse, and the forward of lines too long for shared
+  memory, run one 2D level as two launches of the lifting passes of
+  ``csrc/dwt53.cu``, one along columns and one along rows.
 
 ``fwd53_multilevel_``/``inv53_multilevel_`` pick the kernel lane for a
 CUDA tensor and the plain lane for a CPU tensor; any other device raises.
@@ -25,7 +27,8 @@ int32 arithmetic with arithmetic ``>>``, bit-exact with the reference.
 
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+import functools
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -205,23 +208,72 @@ def _inv_level_plain_(x, h, w, even_row, even_col):
 
 _ROW_SAMPLES_PER_BLOCK = 2048   # rows share a block up to this many samples
 _COLS_PER_BLOCK = 32            # 32 int32 columns = one 128-byte segment
+# The fused stage takes 8 columns (one 32-byte sector) a work item: with
+# 4 frames of 512² its level-1 column pass has 4× the items of 32, and its
+# one shared-memory size for every pass drops from 65.7 to 16.4 KB, so
+# more blocks are co-resident. On the H100, 8 ran the narrow stage faster
+# than 16 or 32 at 4 and at 32 frames of 512² (PERF.md §5).
+_STAGE_COLS_PER_BLOCK = 8
+
+
+def _level_passes(h: int, w: int, even_row: bool,
+                  even_col: bool) -> List[Tuple[bool, bool]]:
+    """The 1D passes of one forward level, in order, as (vertical, even).
+
+    A size-1 dimension still passes at odd parity (its single sample is a
+    HIGH coefficient); at even parity it is skipped. The inverse runs
+    them in reverse.
+    """
+    passes = []
+    if h > 1 or not even_col:
+        passes.append((True, even_col))
+    if w > 1 or not even_row:
+        passes.append((False, even_row))
+    return passes
+
+
+def _pass_geometry(width: int, h: int, w: int, vertical: bool,
+                   cols_per_block: int = _COLS_PER_BLOCK
+                   ) -> Tuple[int, int, int, int, int]:
+    """(n_lines, line_stride, n, elem_stride, lines_per_block) of one pass
+    over the top-left h×w window of planes ``width`` samples wide."""
+    if vertical:
+        n_lines, line_stride, n, elem_stride = w, 1, h, width
+        lpb = cols_per_block
+    else:
+        n_lines, line_stride, n, elem_stride = h, width, w, 1
+        lpb = _ROW_SAMPLES_PER_BLOCK // n
+    # a line too long for shared memory leaves lpb = 1; the launch wrapper
+    # then takes the long-line route
+    fit = _kernels.SMEM_MAX_BYTES // _kernels.dwt53_smem_bytes(1, n)
+    return n_lines, line_stride, n, elem_stride, max(1, min(lpb, n_lines, fit))
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_schedule(width: int, height: int, levels: int, x0: int = 0,
+                 y0: int = 0) -> Optional[Tuple[Tuple[int, ...], ...]]:
+    """The forward transform of [H, W] planes as the pass table of
+    csrc/j2k_fwd_stage.cu: rows of (n_lines, line_stride, n, elem_stride,
+    lines_per_block, even), finest level first. None when a line is too
+    long for shared memory: the transform then runs pass by pass."""
+    table = []
+    for (w, h, lx0, ly0) in _level_windows(width, height, levels, x0, y0):
+        for vertical, even in _level_passes(h, w, lx0 % 2 == 0,
+                                            ly0 % 2 == 0):
+            geom = _pass_geometry(width, h, w, vertical,
+                                  _STAGE_COLS_PER_BLOCK)
+            if _kernels.dwt53_long_line(geom[2]):
+                return None
+            table.append(geom + (int(even),))
+    return tuple(table)
 
 
 def _pass_kernel_(x3: torch.Tensor, h: int, w: int, vertical: bool,
                   even: bool, inverse: bool) -> None:
     """One 1D lifting pass over the top-left h×w window of every plane of
     the contiguous int32 [B, H, W] tensor ``x3``, in place."""
-    width = x3.shape[-1]
-    if vertical:
-        n_lines, n, line_stride, elem_stride = w, h, 1, width
-        lpb = _COLS_PER_BLOCK
-    else:
-        n_lines, n, line_stride, elem_stride = h, w, width, 1
-        lpb = _ROW_SAMPLES_PER_BLOCK // n
-    # a line too long for shared memory leaves lpb = 1, which the launch
-    # wrapper rejects
-    fit = _kernels.SMEM_MAX_BYTES // _kernels.dwt53_smem_bytes(1, n)
-    lpb = max(1, min(lpb, n_lines, fit))
+    n_lines, line_stride, n, elem_stride, lpb = _pass_geometry(
+        x3.shape[-1], h, w, vertical)
     _kernels.dwt53_pass(x3, n_lines, line_stride, n, elem_stride, lpb,
                         even, inverse)
 
@@ -233,26 +285,24 @@ def _planes(x: torch.Tensor) -> torch.Tensor:
 
 def _fwd_level_kernel_(x, h, w, even_row, even_col):
     x3 = _planes(x)
-    if h > 1 or not even_col:
-        _pass_kernel_(x3, h, w, vertical=True, even=even_col, inverse=False)
-    if w > 1 or not even_row:
-        _pass_kernel_(x3, h, w, vertical=False, even=even_row, inverse=False)
+    for vertical, even in _level_passes(h, w, even_row, even_col):
+        _pass_kernel_(x3, h, w, vertical, even, inverse=False)
 
 
 def _inv_level_kernel_(x, h, w, even_row, even_col):
     x3 = _planes(x)
-    if w > 1 or not even_row:
-        _pass_kernel_(x3, h, w, vertical=False, even=even_row, inverse=True)
-    if h > 1 or not even_col:
-        _pass_kernel_(x3, h, w, vertical=True, even=even_col, inverse=True)
+    for vertical, even in reversed(_level_passes(h, w, even_row, even_col)):
+        _pass_kernel_(x3, h, w, vertical, even, inverse=True)
 
 
 # ---- multilevel -------------------------------------------------------------
 
 LevelFn = Callable[[torch.Tensor, int, int, bool, bool], None]
+MultilevelFn = Callable[[torch.Tensor, int, int, int], torch.Tensor]
 
 
-def _lane(x: torch.Tensor, kernel: LevelFn, plain: LevelFn) -> LevelFn:
+def _lane(x: torch.Tensor, kernel: MultilevelFn,
+          plain: MultilevelFn) -> MultilevelFn:
     if x.device.type == "cuda":
         return kernel
     if x.device.type == "cpu":
@@ -268,23 +318,45 @@ def _multilevel_(x: torch.Tensor, levels: int, x0: int, y0: int,
     return x
 
 
+def _fwd_multilevel_kernel_(x: torch.Tensor, levels: int, x0: int,
+                            y0: int) -> torch.Tensor:
+    """One launch of the fused forward stage, or pass by pass where a line
+    is too long for shared memory."""
+    sched = fwd_schedule(x.shape[-1], x.shape[-2], levels, x0, y0)
+    if sched is None:
+        return _multilevel_(x, levels, x0, y0, _fwd_level_kernel_,
+                            inverse=False)
+    if x.numel():
+        x3 = _planes(x)
+        _kernels.j2k_fwd_stage(x3, x3, sched, 0, "coeffs")
+    return x
+
+
+def _inv_multilevel_kernel_(x: torch.Tensor, levels: int, x0: int,
+                            y0: int) -> torch.Tensor:
+    return _multilevel_(x, levels, x0, y0, _inv_level_kernel_, inverse=True)
+
+
 def fwd53_multilevel_(x: torch.Tensor, levels: int, x0: int = 0,
                       y0: int = 0) -> torch.Tensor:
     """Multilevel packed decomposition of [..., H, W] int32, in place.
 
     Finest level first; each level transforms the current LL window at the
-    top-left. Kernel lane for CUDA tensors, plain lane for CPU tensors.
+    top-left. A CUDA tensor takes one launch of csrc/j2k_fwd_stage.cu
+    (lines over 58111 samples: two launches of csrc/dwt53.cu per level); a
+    CPU tensor takes the plain lane.
     """
-    lane = _lane(x, _fwd_level_kernel_, _fwd_level_plain_)
-    return _multilevel_(x, levels, x0, y0, lane, inverse=False)
+    return _lane(x, _fwd_multilevel_kernel_,
+                 fwd53_multilevel_plain_)(x, levels, x0, y0)
 
 
 def inv53_multilevel_(x: torch.Tensor, levels: int, x0: int = 0,
                       y0: int = 0) -> torch.Tensor:
     """Multilevel packed reconstruction of [..., H, W] int32, in place,
-    coarsest level first."""
-    lane = _lane(x, _inv_level_kernel_, _inv_level_plain_)
-    return _multilevel_(x, levels, x0, y0, lane, inverse=True)
+    coarsest level first: two launches of csrc/dwt53.cu per level on a
+    CUDA tensor, the plain lane on a CPU tensor."""
+    return _lane(x, _inv_multilevel_kernel_,
+                 inv53_multilevel_plain_)(x, levels, x0, y0)
 
 
 def fwd53_multilevel_plain_(x: torch.Tensor, levels: int, x0: int = 0,

@@ -7,8 +7,10 @@ Port of the J2K half of ``go_dicom_codec_tpu/pipeline.py``:
   multilevel 5/3 → per-codeblock stats), the pipelines' encode stage with
   its int16 narrow readback and max-abs flag, the int32 redo on overflow
   (``fetch_coeffs``) and the reversible and irreversible decode stages.
-  Every stage takes tensors on the device it should run on; the 5/3 runs
-  through the hand-written kernels on CUDA tensors;
+  Every stage takes tensors on the device it should run on; on CUDA
+  tensors each encode stage is one launch of the fused forward stage
+  (ops/j2k_fwd_stage.py) after the RCT, and the decode stages run the 5/3
+  through the lifting passes;
 - the measured transfer policy that picks the transform engine;
 - the double-buffered ``encode_frames_pipelined`` and
   ``decode_frames_pipelined``: the device transforms chunk k+1 while the
@@ -28,34 +30,26 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from .ops.blockstats import codeblock_max_abs, max_bitplane
 from .ops.dwt53 import fwd53_multilevel_, inv53_multilevel_
 from .ops.dwt97 import inv97_multilevel
 from .ops.mct import (dc_level_shift, ict_inverse, ict_inverse_np,
                       inv_dc_level_shift, rct_forward, rct_forward_np,
                       rct_inverse, rct_inverse_np)
+from .ops.j2k_fwd_stage import fwd_stage
 
 INT16_MAX = 32767
 ENGINES = ("auto", "device", "host")
 
 
-def _shifted(frames: torch.Tensor, bits: int, signed: bool) -> torch.Tensor:
-    """DC-shifted int32 samples in a tensor the transform may overwrite."""
-    s = dc_level_shift(frames.to(torch.int32), bits, signed)
-    if s.data_ptr() == frames.data_ptr():
-        return s.clone(memory_format=torch.contiguous_format)
-    return s.contiguous()
+def _dc_shift(bits: int, signed: bool) -> int:
+    """What the DC shift subtracts (ops/mct.py dc_level_shift)."""
+    return 0 if signed else 1 << (bits - 1)
 
 
 def _rct_shifted(frames: torch.Tensor, bits: int) -> torch.Tensor:
     """[B, 3, H, W] → DC shift → RCT, stacked as [B, 3, H, W] int32."""
     s = dc_level_shift(frames.to(torch.int32), bits, signed=False)
     return torch.stack(rct_forward(s[:, 0], s[:, 1], s[:, 2]), dim=1)
-
-
-def _stats(coeffs: torch.Tensor, cb: int):
-    m = codeblock_max_abs(coeffs, cb, cb)
-    return coeffs, m, max_bitplane(m)
 
 
 def j2k_lossless_encode_transform(frames: torch.Tensor, levels: int = 5,
@@ -66,8 +60,8 @@ def j2k_lossless_encode_transform(frames: torch.Tensor, levels: int = 5,
     Returns (coeffs [B,H,W] int32 packed-Mallat, cb_max [B,nby,nbx],
     cb_bitplanes [B,nby,nbx]).
     """
-    return _stats(fwd53_multilevel_(_shifted(frames, bits, signed), levels),
-                  cb)
+    return fwd_stage(frames, _dc_shift(bits, signed), levels,
+                     epilogue="stats", cb=cb)
 
 
 def j2k_rgb_lossless_encode_transform(frames: torch.Tensor, levels: int = 5,
@@ -76,31 +70,27 @@ def j2k_rgb_lossless_encode_transform(frames: torch.Tensor, levels: int = 5,
 
     DC shift → RCT → per-component multilevel 5/3.
     """
-    return _stats(fwd53_multilevel_(_rct_shifted(frames, bits), levels), cb)
+    return fwd_stage(_rct_shifted(frames, bits), 0, levels,
+                     epilogue="stats", cb=cb)
 
 
-def _narrowed(c: torch.Tensor, narrow: bool):
-    if not narrow:
-        return c
-    # int16 readback halves the transfer. Typical 5/3 coefficients of
-    # ≤12-bit input fit int16, but the lifting gain compounds per level, so
-    # the max |coeff| rides along and the host redoes the stage in int32
-    # on overflow (fetch_coeffs).
-    return c.to(torch.int16), c.abs().amax()
-
-
+# int16 readback halves the transfer. Typical 5/3 coefficients of ≤12-bit
+# input fit int16, but the lifting gain compounds per level, so the max
+# |coeff| rides along and the host redoes the stage in int32 on overflow
+# (fetch_coeffs).
 def _pipeline_device_stage(x: torch.Tensor, bits: int, signed: bool,
                            lv: int, narrow: bool = False):
     """[B, H, W] → DC shift → 5/3: int32 coefficients, or with ``narrow``
     (int16 coefficients, max |coeff|)."""
-    return _narrowed(fwd53_multilevel_(_shifted(x, bits, signed), lv),
-                     narrow)
+    return fwd_stage(x, _dc_shift(bits, signed), lv,
+                     epilogue="narrow" if narrow else "coeffs")
 
 
 def _pipeline_device_stage_rgb(x: torch.Tensor, bits: int, lv: int,
                                narrow: bool = False):
     """[B, 3, H, W] → DC shift → RCT → per-component 5/3."""
-    return _narrowed(fwd53_multilevel_(_rct_shifted(x, bits), lv), narrow)
+    return fwd_stage(_rct_shifted(x, bits), 0, lv,
+                     epilogue="narrow" if narrow else "coeffs")
 
 
 def fetch_coeffs(result, x: torch.Tensor, bits: int, signed: bool, lv: int,

@@ -7,13 +7,20 @@ of ``bench.py:47-98``. Rows:
     64×64 code-block max/bitplane stats (the bench.py encode step);
   - ``idwt53``: dequant ×2 + inverse 5/3 + inverse DC shift + clip (the
     bench.py decode step);
+  - ``j2k_stage_narrow``: the pipelines' encode stage, 12-bit uint16
+    frames → int16 coefficients and the max |coeff|;
+  - ``j2k_stage_stats``: ``j2k_lossless_encode_transform``, int32 frames →
+    coefficients and 64×64 code-block stats;
   - ``dct8x8_quant_pallas``: the fused 8×8 DCT + quant kernel, the port of
     the Pallas kernel;
   - ``xplus1_ceiling``: ``x + 1``, the memory-bound ceiling of this shape.
 
-Each row runs in the kernel lane (the hand-written kernels) and the plain
-lane (the same step in plain torch), except the ceiling, which is plain
-torch only. Inputs are device-resident 12-bit samples from
+Each row runs in the kernel lane (the hand-written kernels: one launch of
+the fused forward stage for every forward 5/3) and the plain lane (the
+same step in plain torch), except the ceiling, which is plain torch only;
+the two stage rows also run the per-pass lane (torch widen and shift, two
+lifting-pass launches a level, torch epilogue: what lines too long for
+shared memory take). Inputs are device-resident 12-bit samples from
 ``numpy.random.default_rng(seed)``. A run is ``iters`` calls back to back
 between two CUDA events; a row reports the median over ``RUNS`` runs
 after one warm-up run, as ms per call and Mpx/s, and beside it the host
@@ -22,18 +29,26 @@ time it took to issue one call in the same runs (``host_ms``).
 The command line then shows, in the same process, where the time goes
 (``run_profile``): for every row and lane, and for the 5-level forward
 and inverse alone, the device time per call (the kernel time
-torch.profiler records over ``iters`` calls), its largest kernels and the
-device's idle share, 1 − device time / event time; then the same for
-each single lifting pass of the 5-level transform (``iters`` launches of
-the one pass back to back).
+torch.profiler records over ``iters`` calls), the device operations per
+call, its largest kernels and the device's idle share, 1 − device time /
+event time; the stage rows again at a batch of ``STAGE_SMALL_BATCH``
+(the pipelines' chunk); then the same for each single lifting pass of the
+5-level transform (``iters`` launches of the one pass back to back); then
+the lifting passes' long-line route (``long_profile``): the level-1 pass
+along the 65535-sample side of [2, 16, 65535] and [2, 65535, 16] frames,
+forward and inverse, and the 5-level transform of [2, 16, 65535], with
+the kernel launches and long-route launches of one call. Each stage and
+long-route line carries its bound: the bytes it must move (input read
+once, outputs written once; a pass: its window read and written once)
+over the H100's 3.35 TB/s.
 
 Usage:
     python -m go_dicom_codec_torch.tools.device_bench [--batch N]
         [--size WxH] [--iters N]
 
 Prints the card, one ``BENCH|`` JSON line per row and lane, one
-``PROFILE|`` line per step and one ``PASS|`` line per pass. Needs a CUDA
-device.
+``PROFILE|`` line per step, one ``PASS|`` line per pass and one ``LONG|``
+line per long-route step and lane. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,17 +64,26 @@ import torch
 
 from ..ops.blockstats import codeblock_max_abs, max_bitplane
 from ..ops.dct8x8 import LUMA_QUANT, scale_quant_table
-from ..ops.dwt53 import (_level_windows, _pass_kernel_, fwd53_multilevel_,
-                         fwd53_multilevel_plain_, inv53_multilevel_,
-                         inv53_multilevel_plain_)
+from .. import _kernels
+from ..ops.dwt53 import (_along_cols, _fwd_level_kernel_, _level_passes,
+                         _level_windows, _multilevel_, _pass_kernel_,
+                         fwd53_1d, fwd53_multilevel_,
+                         fwd53_multilevel_plain_, inv53_1d,
+                         inv53_multilevel_, inv53_multilevel_plain_)
 from ..ops.fdct8x8_quant import fdct8x8_quant, fdct8x8_quant_plain
+from ..ops.j2k_fwd_stage import (_epilogue, _shifted, fwd_stage,
+                                 fwd_stage_plain)
 from ..ops.mct import dc_level_shift, inv_dc_level_shift
 
 LEVELS = 5
 RUNS = 5  # timed runs per measurement, after one warm-up run
+STAGE_SMALL_BATCH = 4  # frames per chunk of the encode pipeline
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 LANES = {"kernel": (fwd53_multilevel_, inv53_multilevel_, fdct8x8_quant),
          "plain": (fwd53_multilevel_plain_, inv53_multilevel_plain_,
                    fdct8x8_quant_plain)}
+# frames with a side too long for shared memory: along rows, along columns
+LONG_SHAPES = ((2, 16, 65535), (2, 65535, 16))
 
 
 def card_info() -> str:
@@ -69,6 +93,20 @@ def card_info() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def fwd53_passes_(x: torch.Tensor, levels: int, x0: int = 0,
+                  y0: int = 0) -> torch.Tensor:
+    """The forward 5/3 on the per-pass lane: two launches of the lifting
+    passes of csrc/dwt53.cu per level, in place."""
+    return _multilevel_(x, levels, x0, y0, _fwd_level_kernel_, inverse=False)
+
+
+def stage_passes(x: torch.Tensor, shift: int, levels: int, epilogue: str,
+                 cb: int = 64):
+    """The forward stage on the per-pass lane: torch widen and shift, the
+    lifting passes, the torch epilogue."""
+    return _epilogue(fwd53_passes_(_shifted(x, shift), levels), epilogue, cb)
 
 
 def dwt53_stats(x: torch.Tensor, lane: str = "kernel"):
@@ -114,22 +152,29 @@ def time_ms(fn, iters: int = 10) -> tuple:
 def device_ms(fn, iters: int = 10) -> tuple:
     """Kernel time per call of ``fn`` on the device, from torch.profiler
     over ``iters`` calls after one warm-up call: (ms, the six largest
-    kernels as [name, µs per call]). Only device events count: a torch
-    op on the host reports its kernels' time as its own as well."""
+    kernels as [name, µs per call], device operations per call: kernels,
+    copies and fills). Only device events count: a torch op on the host
+    reports its kernels' time as its own as well. A profile that recorded
+    no device event at all is taken again, up to three times in all."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sorted(((e.self_device_time_total / iters, e.key)
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.self_device_time_total > 0), reverse=True)
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        if events:
+            break
+    us = sorted(((e.self_device_time_total / iters, e.key) for e in events),
+                reverse=True)
     top = [[k[:72], t] for t, k in us[:6]]
-    return sum(t for t, _ in us) / 1e3, top
+    ops = sum(e.count for e in events) / iters
+    return sum(t for t, _ in us) / 1e3, top, ops
 
 
 def _inputs(batch: int, height: int, width: int, seed: int):
@@ -144,12 +189,35 @@ def _inputs(batch: int, height: int, width: int, seed: int):
     return x, qt
 
 
+def _stage_steps(x: torch.Tensor) -> dict:
+    """The two stage rows: {row: ({lane: step}, bound ms)}."""
+    def lanes(a, epilogue):
+        return {"kernel": lambda: fwd_stage(a, 2048, LEVELS,
+                                            epilogue=epilogue),
+                "passes": lambda: stage_passes(a, 2048, LEVELS, epilogue),
+                "plain": lambda: fwd_stage_plain(a, 2048, LEVELS,
+                                                 epilogue=epilogue)}
+    cb = 64
+    blocks = x.shape[0] * -(-x.shape[1] // cb) * -(-x.shape[2] // cb)
+    # bytes: uint16 in, int16 out and one int32; int32 in and out and two
+    # int32 a code-block
+    return {"j2k_stage_narrow": (lanes(x.to(torch.uint16), "narrow"),
+                                 (x.numel() * 4 + 4) / HBM_BYTES_PER_S * 1e3),
+            "j2k_stage_stats": (lanes(x, "stats"),
+                                (x.numel() * 8 + blocks * 8)
+                                / HBM_BYTES_PER_S * 1e3)}
+
+
 def _steps(x: torch.Tensor, qt: torch.Tensor) -> dict:
-    """Every row's step, as a function of the lane."""
+    """The bench.py rows in each lane: {row: {lane: step}}."""
     q = dwt53_stats(x)[0]
-    return {"dwt53_stats": lambda lane: dwt53_stats(x, lane),
-            "idwt53": lambda lane: idwt53(q, lane),
-            "dct8x8_quant_pallas": lambda lane: LANES[lane][2](x, qt, 2048)}
+    return {"dwt53_stats": {lane: (lambda lane=lane: dwt53_stats(x, lane))
+                            for lane in LANES},
+            "idwt53": {lane: (lambda lane=lane: idwt53(q, lane))
+                       for lane in LANES},
+            "dct8x8_quant_pallas": {
+                lane: (lambda lane=lane: LANES[lane][2](x, qt, 2048))
+                for lane in LANES}}
 
 
 def run_bench(batch: int = 32, height: int = 512, width: int = 512,
@@ -167,52 +235,147 @@ def run_bench(batch: int = 32, height: int = 512, width: int = 512,
                      "batch": batch, "size": f"{width}x{height}",
                      "runs": RUNS, "iters": iters, "gpu": card})
 
-    for name, step in _steps(x, qt).items():
-        for lane in LANES:  # kernel, then plain: the pair runs back to back
-            row(name, lane, lambda: step(lane))
+    stages = {name: lanes for name, (lanes, _) in _stage_steps(x).items()}
+    for name, lanes in {**_steps(x, qt), **stages}.items():
+        for lane, fn in lanes.items():  # the lanes of a row run back to back
+            row(name, lane, fn)
     row("xplus1_ceiling", "plain", lambda: x + 1)
     return rows
+
+
+def _line(fn, iters: int, card: str, **key) -> dict:
+    """One profile line of ``fn``: event and host time from ``time_ms``,
+    device time, device operations and largest kernels from
+    ``device_ms``, unprofiled runs first."""
+    ms, host = time_ms(fn, iters)
+    dev, top, ops = device_ms(fn, iters)
+    return {**key, "event_ms": ms, "host_ms": host, "device_ms": dev,
+            "idle_share": 1 - dev / ms, "device_ops_per_call": ops,
+            "top_kernels_us": top, "gpu": card}
+
+
+def stage_profile(batch: int, height: int = 512, width: int = 512,
+                  iters: int = 10, seed: int = 0, card: str = "") -> list:
+    """Profile lines of the two stage rows in every lane, with bounds."""
+    x, _ = _inputs(batch, height, width, seed)
+    card = card or card_info()
+    return [_line(fn, iters, card, step=f"{name}/{lane}", batch=batch,
+                  bound_ms=bound)
+            for name, (lanes, bound) in _stage_steps(x).items()
+            for lane, fn in lanes.items()]
 
 
 def run_profile(batch: int = 32, height: int = 512, width: int = 512,
                 iters: int = 10, seed: int = 0, card: str = "") -> tuple:
     """Where the time goes, on CUDA device 0: (step lines, pass lines).
 
-    Every time of a line comes from this one call: event and host time
-    from ``time_ms``, device time from ``device_ms``, unprofiled runs
-    first.
+    Every time of a line comes from this one call.
     """
     x, qt = _inputs(batch, height, width, seed)
     card = card or card_info()
     buf = x - 2048
-    fns = {f"{name}/{lane}": (lambda step=step, lane=lane: step(lane))
-           for name, step in _steps(x, qt).items() for lane in LANES}
+    fns = {f"{name}/{lane}": fn for name, lanes in _steps(x, qt).items()
+           for lane, fn in lanes.items()}
     for lane, (fwd, inv, _) in LANES.items():
         fns[f"fwd53_{LEVELS}lv/{lane}"] = lambda fwd=fwd: fwd(buf, LEVELS)
         fns[f"inv53_{LEVELS}lv/{lane}"] = lambda inv=inv: inv(buf, LEVELS)
+    fns[f"fwd53_{LEVELS}lv/passes"] = lambda: fwd53_passes_(buf, LEVELS)
     fns["xplus1/plain"] = lambda: x + 1
 
-    def line(fn, **key):
-        ms, host = time_ms(fn, iters)
-        dev, top = device_ms(fn, iters)
-        return {**key, "event_ms": ms, "host_ms": host, "device_ms": dev,
-                "idle_share": 1 - dev / ms, "top_kernels_us": top,
-                "gpu": card}
-
-    steps = [line(fn, step=name) for name, fn in fns.items()]
+    steps = [_line(fn, iters, card, step=name, batch=batch)
+             for name, fn in fns.items()]
+    steps += stage_profile(batch, height, width, iters, seed, card)
     passes = []
     for level, (w, h, _, _) in enumerate(
             _level_windows(width, height, LEVELS, 0, 0), 1):
         for inverse in (False, True):
             for vertical in (True, False):
-                p = line(lambda: _pass_kernel_(buf, h, w, vertical, True,
-                                               inverse),
-                         level=level, window=f"{w}x{h}",
-                         axis="cols" if vertical else "rows",
-                         inverse=inverse)
-                p["device_gb_per_s"] = 8 * batch * h * w / p["device_ms"] / 1e6
+                p = _line(lambda: _pass_kernel_(buf, h, w, vertical, True,
+                                                inverse),
+                          iters, card, level=level, window=f"{w}x{h}",
+                          axis="cols" if vertical else "rows",
+                          inverse=inverse)
+                p["device_gb_per_s"] = (8 * batch * h * w / p["device_ms"]
+                                        / 1e6 if p["device_ms"] else None)
                 passes.append(p)
     return steps, passes
+
+
+def _pass_plain_(x3: torch.Tensor, h: int, w: int, vertical: bool,
+                 even: bool, inverse: bool) -> torch.Tensor:
+    """One 1D lifting pass in plain torch over the top-left h×w window of
+    every plane of x3, in place: what ``_pass_kernel_`` launches."""
+    fn = inv53_1d if inverse else fwd53_1d
+    win = x3[:, :h, :w]
+    x3[:, :h, :w] = _along_cols(fn, win, even) if vertical else fn(win, even)
+    return x3
+
+
+def long_pass_steps(seed: int = 0) -> list:
+    """The long-line route alone: the level-1 pass along the long side of
+    each ``LONG_SHAPES`` frame, forward and inverse, in place on one
+    device-resident buffer a shape. Each step is a dict of its ``axis``,
+    ``inverse``, ``shape``, ``samples`` (of the window) and its
+    ``kernel`` and ``plain`` calls."""
+    rng = np.random.default_rng(seed)
+    steps = []
+    for shape in LONG_SHAPES:
+        buf = torch.as_tensor(rng.integers(-2048, 2048, shape,
+                                           dtype=np.int32),
+                              device=torch.device("cuda", 0))
+        _, h, w = shape
+        vertical = h > w
+        for inverse in (False, True):
+            args = (buf, h, w, vertical, True, inverse)
+            steps.append({"axis": "cols" if vertical else "rows",
+                          "inverse": inverse, "shape": list(shape),
+                          "samples": buf.numel(),
+                          "kernel": lambda a=args: _pass_kernel_(*a),
+                          "plain": lambda a=args: _pass_plain_(*a)})
+    return steps
+
+
+def _launches(fn) -> tuple:
+    """(kernel launches, long-route launches) of one call of fn."""
+    before = (sum(_kernels.launch_counts.values()),
+              sum(_kernels.long_route_counts.values()))
+    fn()
+    return (sum(_kernels.launch_counts.values()) - before[0],
+            sum(_kernels.long_route_counts.values()) - before[1])
+
+
+def long_profile(iters: int = 10, seed: int = 0, card: str = "") -> list:
+    """Profile lines of the long-line route: each ``long_pass_steps`` step
+    and the 5-level transform of ``LONG_SHAPES[0]``, forward and inverse,
+    in the kernel and plain lanes, with bounds and launches a call."""
+    card = card or card_info()
+    lines = []
+    for s in long_pass_steps(seed):
+        for lane in ("kernel", "plain"):
+            n, n_long = _launches(s[lane])
+            lines.append(_line(
+                s[lane], iters, card,
+                step=f"long_pass/{s['axis']}/{'inv' if s['inverse'] else 'fwd'}"
+                     f"/{lane}", shape=s["shape"], launches=n,
+                long_route_launches=n_long,
+                bound_ms=8 * s["samples"] / HBM_BYTES_PER_S * 1e3))
+    shape = LONG_SHAPES[0]
+    buf = torch.as_tensor(np.random.default_rng(seed).integers(
+        -2048, 2048, shape, dtype=np.int32), device=torch.device("cuda", 0))
+    window = sum(shape[0] * h * w * len(_level_passes(h, w, True, True))
+                 for w, h, _, _ in _level_windows(shape[2], shape[1], LEVELS,
+                                                  0, 0))
+    for lane, (fwd, inv, _) in LANES.items():
+        for name, fn in ((f"fwd53_{LEVELS}lv_long/{lane}", fwd),
+                         (f"inv53_{LEVELS}lv_long/{lane}", inv)):
+            def step(fn=fn):
+                return fn(buf, LEVELS)
+            n, n_long = _launches(step)
+            lines.append(_line(step, iters, card, step=name,
+                               shape=list(shape), launches=n,
+                               long_route_launches=n_long,
+                               bound_ms=8 * window / HBM_BYTES_PER_S * 1e3))
+    return lines
 
 
 def main(argv=None) -> int:
@@ -227,10 +390,13 @@ def main(argv=None) -> int:
     for r in run_bench(opts.batch, h, w, opts.iters, card=card):
         print("BENCH|" + json.dumps(r))
     steps, passes = run_profile(opts.batch, h, w, opts.iters, card=card)
+    steps += stage_profile(STAGE_SMALL_BATCH, h, w, opts.iters, card=card)
     for r in steps:
         print("PROFILE|" + json.dumps(r))
     for r in passes:
         print("PASS|" + json.dumps(r))
+    for r in long_profile(opts.iters, card=card):
+        print("LONG|" + json.dumps(r))
     return 0
 
 

@@ -147,18 +147,30 @@ def _mirror(q, n):
     return np.where(q < 0, -q, np.where(q >= n, 2 * (n - 1) - q, q))
 
 
-def _pass_model(x3, n_lines, line_stride, n, elem_stride, lpb, even,
-                inverse):
-    """numpy model of one csrc/dwt53.cu launch, with its arguments."""
-    assert lpb >= 1
-    assert _kernels.dwt53_smem_bytes(lpb, n) <= _kernels.SMEM_MAX_BYTES
-    flat = x3.reshape(x3.shape[0], -1)
+def _window(x3, n_lines, line_stride, n, elem_stride):
+    """The flat planes of x3 and the [lines, n] offsets of the window."""
     j = np.arange(n_lines)[:, None]
     i = np.arange(n)[None, :]
-    addr = torch.as_tensor(j * line_stride + i * elem_stride)  # [lines, n]
-    lo0 = 0 if even else 1
+    return (x3.reshape(x3.shape[0], -1),
+            torch.as_tensor(j * line_stride + i * elem_stride))
+
+
+def _packed_pos(n, lo0):
+    """Interleaved position of each packed index: lows first."""
+    i = np.arange(n)
     sn = (n + 1 - lo0) // 2
-    packed_pos = np.where(i < sn, 2 * i + lo0, 2 * (i - sn) + 1 - lo0)[0]
+    return np.where(i < sn, 2 * i + lo0, 2 * (i - sn) + 1 - lo0)
+
+
+def _pass_model(x3, n_lines, line_stride, n, elem_stride, lpb, even,
+                inverse):
+    """numpy model of one csrc/dwt53.cu launch on the shared-memory route,
+    with its arguments: the lines lifted in place, step by step."""
+    assert lpb >= 1
+    assert _kernels.dwt53_smem_bytes(lpb, n) <= _kernels.SMEM_MAX_BYTES
+    flat, addr = _window(x3, n_lines, line_stride, n, elem_stride)
+    lo0 = 0 if even else 1
+    packed_pos = _packed_pos(n, lo0)
     lines = flat[:, addr].numpy().astype(np.int64)  # [B, lines, n]
     buf = np.empty_like(lines)
     if inverse:
@@ -181,10 +193,69 @@ def _pass_model(x3, n_lines, line_stride, n, elem_stride, lpb, even,
     flat[:, addr] = torch.as_tensor(out.astype(np.int32))
 
 
-@pytest.mark.parametrize("shape,origin,levels", [
-    ((3, 61, 37), o, lv) for o in [(0, 0), (1, 0), (0, 1), (1, 1)]
-    for lv in (1, 3, 6)] + [((2, h, w), (1, 1), 2)
-                            for h, w in [(1, 1), (1, 5), (6, 1), (2, 7)]])
+def _long_pass_model(x3, n_lines, line_stride, n, elem_stride, even,
+                     inverse):
+    """numpy model of the long-line route of csrc/dwt53.cu: the wrapper's
+    snapshot of the window, read at the strides it returns, then every
+    output sample straight from it, in int32."""
+    flat, addr = _window(x3, n_lines, line_stride, n, elem_stride)
+    copy, snap_line, snap_elem = _kernels._window_snapshot(
+        x3, n_lines, line_stride, n, elem_stride)
+    assert copy.numel() == x3.shape[0] * n_lines * n   # the window alone
+    # a copy even where the window is the whole array: the kernel writes
+    # x3 while it reads the snapshot
+    assert (copy.untyped_storage().data_ptr()
+            != x3.untyped_storage().data_ptr())
+    j, i = np.arange(n_lines)[:, None], np.arange(n)[None, :]
+    snap = copy.reshape(x3.shape[0], -1)[
+        :, torch.as_tensor(j * snap_line + i * snap_elem)].numpy()
+    lo0 = 0 if even else 1
+    q = np.arange(n)
+    low = q % 2 == lo0
+    # the line in interleaved order: the inverse reads packed L and H
+    x = snap[..., np.argsort(_packed_pos(n, lo0))] if inverse else snap
+    if n == 1:
+        out = x if even else (x >> 1 if inverse else x * 2)
+    else:
+        left, right = _mirror(q - 1, n), _mirror(q + 1, n)
+        if inverse:
+            s = x - ((x[..., left] + x[..., right] + 2) >> 2)
+            out = np.where(low, s, x + ((s[..., left] + s[..., right]) >> 1))
+        else:
+            d = x - ((x[..., left] + x[..., right]) >> 1)
+            out = np.where(low, x + ((d[..., left] + d[..., right] + 2) >> 2),
+                           d)[..., _packed_pos(n, lo0)]
+    flat[:, addr] = torch.as_tensor(out.astype(np.int32))
+
+
+def _route_model(routes):
+    """A stand-in for _kernels.dwt53_pass: the route it picks from the
+    shape, then that route's model; each route taken is appended to
+    ``routes``."""
+    def launch(x3, n_lines, line_stride, n, elem_stride, lpb, even,
+               inverse):
+        route = _kernels.dwt53_route(n, lpb)
+        routes.append(route)
+        if route == "long":
+            _long_pass_model(x3, n_lines, line_stride, n, elem_stride, even,
+                             inverse)
+        else:
+            _pass_model(x3, n_lines, line_stride, n, elem_stride, lpb, even,
+                        inverse)
+    return launch
+
+
+def _no_launch(*args, **kwargs):
+    raise AssertionError("this lane must not launch the forward stage")
+
+
+KERNEL_LANE_CASES = [((3, 61, 37), o, lv) for o in [(0, 0), (1, 0), (0, 1),
+                                                      (1, 1)]
+                     for lv in (1, 3, 6)] + [
+    ((2, h, w), (1, 1), 2) for h, w in [(1, 1), (1, 5), (6, 1), (2, 7)]]
+
+
+@pytest.mark.parametrize("shape,origin,levels", KERNEL_LANE_CASES)
 def test_kernel_lane_model_bit_exact(shape, origin, levels, monkeypatch,
                                      rng):
     monkeypatch.setattr(_kernels, "dwt53_pass", _pass_model)
@@ -198,6 +269,79 @@ def test_kernel_lane_model_bit_exact(shape, origin, levels, monkeypatch,
     np.testing.assert_array_equal(back.numpy(), x)
 
 
+@pytest.mark.parametrize("shape,origin,levels", KERNEL_LANE_CASES)
+def test_long_line_model_bit_exact(shape, origin, levels, monkeypatch, rng):
+    """The long-line route's model over the same matrix: with shared
+    memory cut to 9 samples, every line longer than that takes it."""
+    monkeypatch.setattr(_kernels, "SMEM_MAX_BYTES", 9 * 4)
+    routes = []
+    monkeypatch.setattr(_kernels, "dwt53_pass", _route_model(routes))
+    x = rng.integers(-4096, 4096, shape).astype(np.int32)
+    got = port._multilevel_(torch.tensor(x), levels, *origin,
+                            port._fwd_level_kernel_, inverse=False)
+    np.testing.assert_array_equal(got.numpy(), _jax_fwd(x, levels, *origin))
+    back = port._inv_multilevel_kernel_(got, levels, *origin)
+    np.testing.assert_array_equal(back.numpy(), x)
+    assert ("long" in routes) == (max(shape[1:]) > 9)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 60001), (1, 60001, 8)])
+def test_long_lines_take_the_long_route(shape, monkeypatch, rng):
+    """A 60001-sample line, along rows or along columns, takes the
+    long-line route on the card (DICOM allows 65535 samples a side), and
+    its model is bit-exact against JAX forward and back."""
+    routes = []
+    monkeypatch.setattr(_kernels, "dwt53_pass", _route_model(routes))
+    monkeypatch.setattr(_kernels, "j2k_fwd_stage", _no_launch)
+    x = rng.integers(-2048, 2048, shape).astype(np.int32)
+    got = port._fwd_multilevel_kernel_(torch.tensor(x), 3, 0, 0)
+    np.testing.assert_array_equal(got.numpy(), _jax_fwd(x, 3))
+    # level 1 along the long side; 30001 samples from level 2 fit
+    assert routes[:2] == (["long", "smem"] if shape[1] > shape[2]
+                          else ["smem", "long"])
+    assert routes.count("long") == 1
+    back = port._inv_multilevel_kernel_(got, 3, 0, 0)
+    np.testing.assert_array_equal(back.numpy(), x)
+
+
+def test_route_by_shape():
+    """The route of a pass and of the forward stage follows from the
+    shape alone, before any launch."""
+    assert _kernels.dwt53_route(58111, 1) == "smem"
+    for n in (58112, 60001, 65535):
+        assert _kernels.dwt53_route(n, 1) == "long"
+    assert _kernels.dwt53_route(512, 32) == "smem"
+    with pytest.raises(_kernels.KernelLaunchError, match="shared memory"):
+        _kernels.dwt53_route(512, 454)      # 454 lines of 513 words
+    # the fused stage takes every frame whose lines all fit, up to a line
+    # of SMEM_MAX_BYTES / 4 words at its odd pitch
+    for n in (58104, 58111):
+        assert port.fwd_schedule(n, 3, 5)[1][2] == n
+        assert port.fwd_schedule(3, n, 5)[0][2] == n
+    assert port.fwd_schedule(58112, 3, 5) is None
+    assert port.fwd_schedule(3, 65535, 5) is None
+    sched = port.fwd_schedule(512, 512, 5)
+    assert len(sched) == 10
+    assert sched[:2] == ((512, 1, 512, 512, 8, 1), (512, 512, 512, 1, 4, 1))
+    assert sched[-1] == (32, 512, 32, 1, 32, 1)
+    # odd origin, 1-sample windows still run (the ×2 rule)
+    assert port.fwd_schedule(1, 1, 2, 1, 1) == ((1, 1, 1, 1, 1, 0),
+                                                (1, 1, 1, 1, 1, 0))
+    assert port.fwd_schedule(1, 1, 3, 0, 0) == ()
+
+
+@pytest.mark.parametrize("source", ["dwt53.cu", "j2k_fwd_stage.cu",
+                                    "lifting.cuh"])
+def test_lifting_kernels_declare_no_static_shared_memory(source):
+    """The routes give a block SMEM_MAX_BYTES of dynamic shared memory,
+    Hopper's whole opt-in limit: a static __shared__ array beside it would
+    make lines of 58105-58111 samples fail to launch."""
+    text = (_kernels.CSRC / source).read_text()
+    decls = [ln.strip() for ln in text.splitlines() if "__shared__" in ln
+             and not ln.strip().startswith("//")]
+    assert all(d.startswith("extern __shared__") for d in decls), decls
+
+
 def test_lanes_by_device():
     x = torch.zeros((2, 8, 8), dtype=torch.int32)
     assert port.fwd53_multilevel_(x, 2) is x        # CPU: plain, in place
@@ -207,6 +351,7 @@ def test_lanes_by_device():
     with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
         _kernels.dwt53_pass(x, 8, 8, 8, 1, 1, True, False)
     # a line longer than shared memory holds (DICOM allows 65535 columns)
+    # is no longer refused: it reaches the device check like any other
     long = torch.zeros((1, 1, 60000), dtype=torch.int32)
-    with pytest.raises(_kernels.KernelLaunchError, match="shared memory"):
+    with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
         _kernels.dwt53_pass(long, 1, 60000, 60000, 1, 1, True, False)

@@ -151,9 +151,14 @@ def test_params_defaults_match_reference():
 
 def test_device_stage_without_device_raises(rng, no_native):
     px = _pixels(rng, 16, 16, 1, 8, False)
+    params = port.J2KEncodeParams(num_levels=2)
+    # the device is explicit: no encoder, decoder or decode call picks one
+    for make in (lambda: port.J2KEncoder(params), port.J2KDecoder,
+                 lambda: port.decode_to_pixels(b"")):
+        with pytest.raises(TypeError, match="device"):
+            make()
     with pytest.raises(ValueError, match="torch.device"):
-        port.J2KEncoder(port.J2KEncodeParams(num_levels=2)).encode(
-            px, 16, 16, 1, 8)
+        port.J2KEncoder(params, device=None).encode(px, 16, 16, 1, 8)
 
 
 @pytest.mark.parametrize("cut", [10, 60, -3])
