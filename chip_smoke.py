@@ -10,17 +10,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    the fused DCT + quant at [32, 512, 512] (|Δ| ≤ 1 on < 0.5 % of the
    coefficients: float summation order differs); the fused forward stage
    bit-exact at [32, 512, 512] uint16 in all three epilogues; the fused
-   forward 5/3, the forward and inverse lifting passes bit-exact at
-   [32, 512, 512] × 5 levels and on small odd cases at every origin, the
-   stage's epilogues on those too;
+   inverse stage bit-exact at [32, 1, 512, 512] int16 → uint16 and
+   [8, 3, 512, 512] with the RCT, on int16 and int32 input, in all three
+   epilogues; the fused forward and inverse 5/3, the forward and inverse
+   lifting passes bit-exact at [32, 512, 512] × 5 levels and on small odd
+   cases at every origin, both stages' epilogues on those too;
 4. drives the main path at full size: 32 gray 512×512 12-bit frames and 8
    RGB 512×512 8-bit frames through encode transform → narrow fetch →
    decode stage, each bit-exact back to its input; frames with a side of
-   58111 samples (the most the fused stage's shared memory holds) and of
-   60001 and 65535 (the lifting passes' long-line route) forward and back,
-   bit-exact against the plain lane; then the device bench; every kernel,
-   and the long-line route of both lifting passes, must have launched in
-   that run;
+   58111 samples (the most the fused stages' shared memory holds: one
+   launch each way) and of 60001 and 65535 (the lifting passes' long-line
+   route) forward and back, bit-exact against the plain lane; then the
+   device bench; every kernel, and the long-line route of both lifting
+   passes, must have launched in that run;
 5. drives the codec path on the card through ``make_registry(cuda:0)``,
    once the native T1/T2 library (g++, built beside the nvcc build) is
    loaded: 32 gray 512×512 12-bit frames and 8 RGB 512×512 8-bit frames
@@ -28,16 +30,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    must equal the native host lane's byte for byte and decode bit-exact,
    the lossy decode lie within ±1 of the host lane's; the fused forward
    stage must launch once per encode chunk and no forward lifting pass
-   beside it, the inverse lifting passes inside the decode, and the
-   pipelines must have run on the device engine (their ``pipeline.*``
-   events; the adapters' scalar fallback would hide a failure). Two gray
-   16 × 60001 frames round-trip through .90 the same way, through the
-   lifting passes' long-line route. Part-2
+   beside it, the fused inverse stage once per decode chunk and no inverse
+   lifting pass, and the pipelines must have run on the device engine
+   (their ``pipeline.*`` events; the adapters' scalar fallback would hide
+   a failure). Two gray 16 × 60001 frames round-trip through .90 the same
+   way, through the lifting passes' long-line route. Part-2
    matrix streams (.92/.93) take the scalar codec's device branches and
    must equal the same codec on the CPU. It also forces the
    int16-overflow redo once. Encode and decode frames/s of the
    registry path and of the same calls through ``make_registry(cuda:0,
-   engine="host")``, the device's share of the encode and the lossy PSNR
+   engine="host")``, the device's share of an encode and of a decode
+   (torch.profiler over one registry call) and the lossy PSNR
    go on lines of their own;
 6. prints the device bench rows, one JSON object of kernel results (the
    lifting passes' with a ``long_route`` entry: its launches in the main
@@ -72,6 +75,8 @@ from go_dicom_codec_torch.ops.fdct8x8_quant import (encode_plane_blocks,
                                                     fdct8x8_quant,
                                                     fdct8x8_quant_plain)
 from go_dicom_codec_torch.ops.j2k_fwd_stage import fwd_stage, fwd_stage_plain
+from go_dicom_codec_torch.ops.j2k_inv_stage import (inv53_passes_, inv_stage,
+                                                    inv_stage_plain)
 from go_dicom_codec_torch.ops.mct import dc_level_shift
 from go_dicom_codec_torch.tools import device_bench
 from go_dicom_codec_torch.utils import profiling
@@ -90,6 +95,8 @@ SOURCES = {
                        "go_dicom_codec_tpu/ops/dwt53.py:112"),
     "j2k_fwd_stage": ("cuda", "go_dicom_codec_torch/csrc/j2k_fwd_stage.cu",
                       "go_dicom_codec_tpu/pipeline.py:43"),
+    "j2k_inv_stage": ("cuda", "go_dicom_codec_torch/csrc/j2k_inv_stage.cu",
+                      "go_dicom_codec_tpu/pipeline.py:435"),
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM outside the tensor cores
@@ -126,21 +133,31 @@ def compare_dct(x, qt) -> int:
 def compare_dwt(x: torch.Tensor, levels: int, x0: int = 0,
                 y0: int = 0) -> dict:
     """The fused forward stage and the forward lifting passes against the
-    plain lane, the inverse lifting passes against the plain inverse, and
-    the stage's narrow and stats epilogues against their plain version;
-    all bit-exact. Returns each kernel's max |d|."""
+    plain lane, the fused inverse stage and the inverse lifting passes
+    against the plain inverse, and the stages' epilogues against their
+    plain versions (the inverse's with the planes as the components of one
+    frame, RCT on, int16 and int32 input); all bit-exact. Returns each
+    kernel's max |d|."""
     fwd_p = fwd53_multilevel_plain_(x.clone(), levels, x0, y0)
     errs = {"j2k_fwd_stage": max_abs_diff(
                 fwd53_multilevel_(x.clone(), levels, x0, y0), fwd_p),
             "dwt53_fwd_pass": max_abs_diff(device_bench.fwd53_passes_(
                 x.clone(), levels, x0, y0), fwd_p),
+            "j2k_inv_stage": max_abs_diff(
+                inv53_multilevel_(fwd_p.clone(), levels, x0, y0), x),
             "dwt53_inv_pass": max_abs_diff(
-                inv53_multilevel_(fwd_p.clone(), levels, x0, y0), x)}
+                inv53_passes_(fwd_p.clone(), levels, x0, y0), x)}
     for epilogue in ("narrow", "stats"):
         got = fwd_stage(x, 7, levels, x0, y0, epilogue, 16)
         want = fwd_stage_plain(x, 7, levels, x0, y0, epilogue, 16)
         errs["j2k_fwd_stage"] = max(errs["j2k_fwd_stage"], *(
             max_abs_diff(g, w) for g, w in zip(got, want)))
+    packed = fwd_p[None]
+    for src in (packed, packed.clamp(-32768, 32767).to(torch.int16)):
+        for epilogue in ("pixels", "narrow"):
+            args = (levels, x0, y0, 12, False, True, epilogue)
+            errs["j2k_inv_stage"] = max(errs["j2k_inv_stage"], max_abs_diff(
+                inv_stage(src, *args), inv_stage_plain(src, *args)))
     check(inv53_multilevel_plain_(fwd_p, levels, x0, y0).equal(x)
           and not any(errs.values()),
           f"5/3 lanes differ: shape {tuple(x.shape)} levels {levels} "
@@ -164,6 +181,29 @@ def compare_stage(x16: torch.Tensor) -> int:
     return err
 
 
+def compare_inv_stage(coeffs: torch.Tensor) -> int:
+    """The fused inverse stage of the pipelines' decode chunks against its
+    plain version: [32, 1, 512, 512] gray and [8, 3, 512, 512] with the RCT
+    (the coefficients' first 24 planes), int16 and int32 input, in all
+    three epilogues; bit-exact."""
+    err = 0
+    for shape, bits, mct in (((B, 1, H, W), 12, False),
+                             ((RGB_FRAMES, 3, H, W), 12, True)):
+        packed = coeffs[:shape[0] * shape[1]].reshape(shape)
+        for src in (packed.to(torch.int16), packed):
+            for epilogue in ("coeffs", "pixels", "narrow"):
+                args = (LEVELS, 0, 0, bits, False, mct, epilogue)
+                got, want = inv_stage(src, *args), inv_stage_plain(src, *args)
+                check(got.dtype == want.dtype, f"j2k_inv_stage {epilogue} "
+                      f"gives {got.dtype}, its plain version {want.dtype}")
+                err = max(err, max_abs_diff(got, want))
+    check(err == 0, f"j2k_inv_stage differs from its plain version: {err}")
+    print(f"j2k_inv_stage == plain at [{B}, 1, {H}, {W}] and "
+          f"[{RGB_FRAMES}, 3, {H}, {W}] (RCT), int16 and int32, coeffs, "
+          f"pixels and narrow")
+    return err
+
+
 def compare_dwt_all(rng, dev) -> dict:
     x = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W), dtype=np.int32),
                         device=dev)
@@ -176,23 +216,32 @@ def compare_dwt_all(rng, dev) -> dict:
             cases += [(odd[:2, :h, :w].contiguous(), levels, x0, y0)
                       for h in range(1, 9) for w in range(1, 9)]
     errs = [compare_dwt(*case) for case in cases]
-    print(f"5/3 fused stage, lifting passes and plain lane agree on "
+    print(f"5/3 fused stages, lifting passes and plain lane agree on "
           f"{len(cases)} cases")
     return {k: max(e[k] for e in errs) for k in errs[0]}
 
 
 def long_lines(rng, dev) -> None:
-    """Frames with a side of 58111 samples (the fused stage, at Hopper's
-    whole shared memory a block) and over it (the lifting passes'
-    long-line route), forward and back, bit-exact against the plain lane;
-    then the pipelines' narrow stage on the longest."""
+    """Frames with a side of 58111 samples (the fused stages, at Hopper's
+    whole shared memory a block: one launch each way) and over it (the
+    lifting passes' long-line route), forward and back, bit-exact against
+    the plain lane; then the pipelines' narrow stages on the longest."""
     for shape in LONG_SHAPES:
         x = torch.as_tensor(rng.integers(-2048, 2048, shape, dtype=np.int32),
                             device=dev)
         fwd = fwd53_multilevel_(x.clone(), LEVELS)
         check(fwd.equal(fwd53_multilevel_plain_(x.clone(), LEVELS)),
               f"long-line forward {shape} differs from the plain lane")
+        before = dict(_kernels.launch_counts)
         inv = inv53_multilevel_(fwd.clone(), LEVELS)
+        fused = _kernels.launch_counts["j2k_inv_stage"] - before[
+            "j2k_inv_stage"]
+        passes = _kernels.launch_counts["dwt53_inv_pass"] - before[
+            "dwt53_inv_pass"]
+        check((fused, passes == 0) == ((1, True) if max(shape) <= 58111
+                                       else (0, False)),
+              f"long-line inverse {shape}: {fused} stage launches, "
+              f"{passes} passes")
         check(inv.equal(inv53_multilevel_plain_(fwd.clone(), LEVELS))
               and inv.equal(x), f"long-line inverse {shape} differs")
     x16 = torch.as_tensor(rng.integers(0, 1 << 12, LONG_SHAPES[-1],
@@ -201,8 +250,11 @@ def long_lines(rng, dev) -> None:
     want = fwd_stage_plain(x16, 2048, LEVELS, epilogue="narrow")
     check(got[0].equal(want[0]) and got[1].equal(want[1]),
           "the narrow stage of a long-line frame differs")
+    px = P._j2k_decode_device_stage(got[0][:, None], LEVELS, 0, 0, 12, False,
+                                    mct=False, narrow=True)
+    check(px[:, 0].equal(x16), "the decode stage of a long-line frame differs")
     print(f"long lines {list(LONG_SHAPES)}: forward, inverse and the narrow "
-          f"stage == plain lane; long-route launches "
+          f"stages == plain lane; long-route launches "
           f"{json.dumps(_kernels.long_route_counts)}")
 
 
@@ -255,9 +307,12 @@ def time_kernels(dev, rng, dct_ms: tuple) -> dict:
     shapes. The lifting passes: the 5-level transform of [B, H, W] through
     them, in place on one buffer, over the passes it launches (each pass
     reads and writes its window once, ~4 operations a sample). The fused
-    stage: the pipelines' narrow stage of [B, H, W] uint16 (reads 2 bytes
-    and writes 2 a sample; ~4 operations a sample and pass, 3 in the
-    epilogue). The DCT: int32 in and out, 35 operations a sample."""
+    forward stage: the pipelines' narrow stage of [B, H, W] uint16 (reads 2
+    bytes and writes 2 a sample; ~4 operations a sample and pass, 3 in the
+    epilogue). The fused inverse stage: the pipeline's narrow decode stage
+    of [B, 1, H, W] int16 coefficients (2 bytes in and 2 out a sample; ~4
+    operations a sample and pass, 4 in the epilogue). The DCT: int32 in
+    and out, 35 operations a sample."""
     buf = torch.as_tensor(rng.integers(-2048, 2048, (B, H, W),
                                        dtype=np.int32), device=dev)
     window = sum(B * h * w * len(_level_passes(h, w, True, True))
@@ -265,7 +320,7 @@ def time_kernels(dev, rng, dct_ms: tuple) -> dict:
     t = {}
     for name, k, p in (("dwt53_fwd_pass", device_bench.fwd53_passes_,
                         fwd53_multilevel_plain_),
-                       ("dwt53_inv_pass", inv53_multilevel_,
+                       ("dwt53_inv_pass", inv53_passes_,
                         inv53_multilevel_plain_)):
         before = _kernels.launch_counts[name]
         k(buf, LEVELS)
@@ -282,6 +337,12 @@ def time_kernels(dev, rng, dct_ms: tuple) -> dict:
         lambda: fwd_stage_plain(x16, 2048, LEVELS, epilogue="narrow"))[0]
     t["j2k_fwd_stage"] = (k_ms, p_ms, *bound(4 * x16.numel() + 4,
                                              4 * window + 3 * x16.numel()))
+    pk = fwd_stage(x16, 2048, LEVELS, epilogue="narrow")[0][:, None]
+    args = (LEVELS, 0, 0, 12, False, False, "narrow")
+    k_ms = device_bench.time_ms(lambda: inv_stage(pk, *args))[0]
+    p_ms = device_bench.time_ms(lambda: inv_stage_plain(pk, *args))[0]
+    t["j2k_inv_stage"] = (k_ms, p_ms, *bound(4 * pk.numel(),
+                                             4 * window + 4 * pk.numel()))
     t["fdct8x8_quant"] = (*dct_ms, *bound(8 * B * H * W, 35 * B * H * W))
     return t
 
@@ -442,6 +503,7 @@ def codec_phase(rng, dev, card: str) -> dict:
                        "pipeline.decode": (1, "device")},
               f"{name}: the pipelines did not run on the device {runs}")
         chunks = profiling.EVENTS["pipeline.encode"]["chunks"]
+        dchunks = profiling.EVENTS["pipeline.decode"]["chunks"]
         host_streams, host_dec = host_lane(frames, bits, dev, streams)
         check(streams == host_streams,
               f"{name}: registry codestreams differ from the host lane's")
@@ -453,8 +515,10 @@ def codec_phase(rng, dev, card: str) -> dict:
               and lc["encode"]["dwt53_fwd_pass"] == 0,
               f"{name}: the encode did not run one j2k_fwd_stage launch a "
               f"chunk ({chunks}) and no forward lifting pass")
-        check(lc["decode"]["dwt53_inv_pass"] > 0,
-              f"{name}: dwt53_inv_pass never launched inside the decode")
+        check(lc["decode"]["j2k_inv_stage"] == dchunks
+              and lc["decode"]["dwt53_inv_pass"] == 0,
+              f"{name}: the decode did not run one j2k_inv_stage launch a "
+              f"chunk ({dchunks}) and no inverse lifting pass")
         launches[name] = lc
         print(f"{name} .90 [{n}, {H}, {W}]: codestreams == host lane, "
               f"decode bit-exact; launches {json.dumps(lc)}")
@@ -526,7 +590,7 @@ def codec_phase(rng, dev, card: str) -> dict:
             fwd = _kernels.launch_counts["j2k_fwd_stage"]
             _kernels.reset_launch_counts()
             reg.get_codec(uid).decode(enc, dec)
-            inv = _kernels.launch_counts["dwt53_inv_pass"]
+            inv = _kernels.launch_counts["j2k_inv_stage"]
             got.append(([enc.get_frame(i) for i in range(2)],
                         [dec.get_frame(i) for i in range(2)], fwd, inv))
         (card_enc, card_dec, fwd, inv), (cpu_enc, cpu_dec, _, _) = got
@@ -538,12 +602,12 @@ def codec_phase(rng, dev, card: str) -> dict:
                              - f.reshape(-1)).max())
                   for d, f in zip(card_dec, rgb))
         if uid == gdc.uids.JPEG_2000_MC_LOSSLESS:
-            check(fwd > 0 and inv > 0, f"{uid}: the forward stage or the "
-                  f"inverse lifting passes did not launch ({fwd}, {inv})")
+            check(fwd > 0 and inv > 0, f"{uid}: the forward or the "
+                  f"inverse stage did not launch ({fwd}, {inv})")
             check(err <= 1, f"{uid}: round trip off by {err}")
         print(f"{uid} Part-2 matrix, 2 × [{H}, {W}, 3]: card == CPU, "
               f"codestreams and decode; max |decode - source| {err}; "
-              f"{fwd} forward stage launches, {inv} inverse passes")
+              f"{fwd} forward and {inv} inverse stage launches")
 
     # the int16-overflow redo: no 12-bit frame overflows, so lower the
     # bound; the redo runs on the pipeline's side stream
@@ -559,19 +623,25 @@ def codec_phase(rng, dev, card: str) -> dict:
     check(redo == host_streams, "the int32 redo changed the codestreams")
     print("int16-overflow redo on the side stream: codestreams == host lane")
 
-    # the device's share of one registry encode of the gray frames
+    # the device's share of one registry encode and one registry decode of
+    # the gray frames
     frames = phantom(rng, B, 12)
     info, src = pixel_data(frames, 12, False)
     codec = registry.get_codec(gdc.uids.JPEG_2000_LOSSLESS)
-    encode = (lambda: codec.encode(
-        src, gdc.MemoryPixelData(info=info, encapsulated=True)))
-    encode()
-    wall = timed(encode)[1]
-    dev_ms, top, ops = device_bench.device_ms(encode, iters=1)
-    share = dev_ms / (wall * 1e3)
-    print(f"registry encode of [{B}, {H}, {W}]: wall {wall * 1e3:.1f} ms, "
-          f"device {dev_ms:.3f} ms in {ops:.0f} device operations, device "
-          f"share {share:.4f}; top kernels {json.dumps(top)}")
+    enc = gdc.MemoryPixelData(info=info, encapsulated=True)
+    codec.encode(src, enc)
+    for name, call in (
+            ("encode", lambda: codec.encode(
+                src, gdc.MemoryPixelData(info=info, encapsulated=True))),
+            ("decode", lambda: codec.decode(enc,
+                                            gdc.MemoryPixelData(info=info)))):
+        call()
+        wall = timed(call)[1]
+        dev_ms, top, ops = device_bench.device_ms(call, iters=1)
+        print(f"registry {name} of [{B}, {H}, {W}]: wall "
+              f"{wall * 1e3:.1f} ms, device {dev_ms:.3f} ms in {ops:.0f} "
+              f"device operations, device share "
+              f"{dev_ms / (wall * 1e3):.4f}; top kernels {json.dumps(top)}")
     for name, r in measured.items():
         print("RATE " + json.dumps({"path": name, "card": card, **r}))
     return launches
@@ -602,6 +672,8 @@ def main() -> int:
     errs = {"fdct8x8_quant": compare_dct(x, qt), **compare_dwt_all(rng, dev)}
     errs["j2k_fwd_stage"] = max(errs["j2k_fwd_stage"],
                                 compare_stage(x.to(torch.uint16)))
+    errs["j2k_inv_stage"] = max(errs["j2k_inv_stage"], compare_inv_stage(
+        fwd_stage_plain(x, 2048, LEVELS)))
     torch.cuda.synchronize()
 
     _kernels.reset_launch_counts()

@@ -37,13 +37,14 @@ LIB_PATH = BUILD_DIR / "libgdct_torch.so"
 
 # No --use_fast_math: the DCT's IEEE divide and rounding must stay exact.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Shared memory one block may use on Hopper (227 KB).
 SMEM_MAX_BYTES = 232448
 
 launch_counts = {"fdct8x8_quant": 0, "dwt53_fwd_pass": 0,
-                 "dwt53_inv_pass": 0, "j2k_fwd_stage": 0}
+                 "dwt53_inv_pass": 0, "j2k_fwd_stage": 0,
+                 "j2k_inv_stage": 0}
 long_route_counts = {"dwt53_fwd_pass": 0, "dwt53_inv_pass": 0}
 
 _lib = None
@@ -74,7 +75,8 @@ def _find_nvcc() -> str:
 
 def build(force: bool = False) -> dict:
     """Compile ``csrc/*.cu`` into ``LIB_PATH`` unless it is newer than
-    every source. Returns {"path", "seconds", "built", "log"}."""
+    every source: one nvcc per source, all started together, then one
+    link. Returns {"path", "seconds", "built", "log"}."""
     sources = sorted(CSRC.glob("*.cu"))
     headers = sorted(CSRC.glob("*.cuh"))
     newest = max(p.stat().st_mtime for p in sources + headers)
@@ -83,18 +85,32 @@ def build(force: bool = False) -> dict:
         return {"path": str(LIB_PATH), "seconds": 0.0, "built": False,
                 "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources)]
+    nvcc, pid = _find_nvcc(), os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    objects = [BUILD_DIR / f"{src.stem}.{pid}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objects)]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = LIB_PATH.with_suffix(f".{pid}.tmp")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objects)]
+    try:
+        for src, proc, log in zip(sources, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} "
+                                   f"({proc.returncode}):\n{log}")
+        link = subprocess.run(cmd, capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{' '.join(cmd)}\n{link.stdout}"
+                               f"{link.stderr}")
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, LIB_PATH)
-    return {"path": str(LIB_PATH), "seconds": seconds, "built": True,
-            "log": proc.stdout + proc.stderr}
+    return {"path": str(LIB_PATH), "seconds": time.perf_counter() - t0,
+            "built": True, "log": "".join(logs)}
 
 
 def _load():
@@ -112,9 +128,11 @@ def _load():
     lib.gdct_fdct8x8_quant.argtypes = [p, p, p, p, ll, i, i, f, p]
     lib.gdct_j2k_fwd_stage.argtypes = [p, i, p, i, i, i, i, p, i, i, i, p, p,
                                        p, p, p]
+    lib.gdct_j2k_inv_stage.argtypes = [p, i, p, p, i, i, i, i, p, i, i, i, i,
+                                       i, i, i, i, i, i, i, p]
     for fn in (lib.gdct_dwt53_fwd_pass, lib.gdct_dwt53_inv_pass,
                lib.gdct_dwt53_long_pass, lib.gdct_fdct8x8_quant,
-               lib.gdct_j2k_fwd_stage):
+               lib.gdct_j2k_fwd_stage, lib.gdct_j2k_inv_stage):
         fn.restype = ctypes.c_int
     lib.gdct_error_string.argtypes = [ctypes.c_int]
     lib.gdct_error_string.restype = ctypes.c_char_p
@@ -225,13 +243,13 @@ def dwt53_pass(x: torch.Tensor, n_lines: int, line_stride: int,
 # first), with their code in csrc/j2k_fwd_stage.cu
 FWD_STAGE_DTYPES = {torch.uint16: 0, torch.int16: 1, torch.int32: 2}
 FWD_STAGE_EPILOGUES = {"coeffs": 0, "narrow": 1, "stats": 2}
-FWD_STAGE_MAX_PASSES = 64
+STAGE_MAX_PASSES = 64   # kMaxPasses of both stages: 32 levels
 
 
 @functools.lru_cache(maxsize=256)
 def _stage_table(schedule: tuple):
     """The pass table as the int64 array the kernel reads, once checked."""
-    if len(schedule) > FWD_STAGE_MAX_PASSES:
+    if len(schedule) > STAGE_MAX_PASSES:
         raise KernelLaunchError(f"j2k_fwd_stage: {len(schedule)} passes")
     for (_, _, n, _, lpb, _) in schedule:
         if dwt53_smem_bytes(lpb, n) > SMEM_MAX_BYTES:
@@ -294,6 +312,102 @@ def j2k_fwd_stage(src: torch.Tensor, coef: torch.Tensor, schedule,
             FWD_STAGE_EPILOGUES[epilogue], int(cb), *ptrs, _stream(src))
     launch_counts["j2k_fwd_stage"] += 1
     _check(lib, err, "j2k_fwd_stage")
+
+
+# dtypes the inverse stage reads as they are, with their code in
+# csrc/j2k_inv_stage.cu
+INV_STAGE_DTYPES = {torch.int16: 1, torch.int32: 2}
+INV_STAGE_EPILOGUES = {"coeffs": 0, "pixels": 1, "narrow": 2}
+
+
+def inv_stage_smem_bytes(schedule) -> int:
+    """Shared memory of one block of the inverse stage: the head's tile
+    beside its line buffer, or a grid pass's lines, whichever is more."""
+    head_w, head_h, head_rows, rows, _, _ = schedule
+    tile = head_w * head_h * 4
+    return max([tile] + [tile + dwt53_smem_bytes(r[4], r[2])
+                         for r in head_rows]
+               + [dwt53_smem_bytes(r[4], r[2]) for r in rows])
+
+
+@functools.lru_cache(maxsize=256)
+def _inv_table(schedule: tuple):
+    """The head's and the grid's pass rows as the int64 array the kernel
+    reads (a head row's done window is unused: 0 × 0), once checked."""
+    _, _, head_rows, rows, _, _ = schedule
+    if len(head_rows) + len(rows) > STAGE_MAX_PASSES:
+        raise KernelLaunchError(f"j2k_inv_stage: "
+                                f"{len(head_rows) + len(rows)} passes")
+    if inv_stage_smem_bytes(schedule) > SMEM_MAX_BYTES:
+        raise KernelLaunchError("j2k_inv_stage: the schedule exceeds shared "
+                                "memory")
+    flat = ([int(v) for r in head_rows for v in (*r, 0, 0)]
+            + [int(v) for r in rows for v in r])
+    return (ctypes.c_longlong * max(1, len(flat)))(*flat)
+
+
+def _int32(v: int) -> int:
+    """v wrapped to int32, as the kernel adds it."""
+    return (v + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def j2k_inv_stage(src: torch.Tensor, coef: torch.Tensor, schedule,
+                  comps: int, epilogue: str, mct: bool = False,
+                  bits: int = 16, signed: bool = False,
+                  out: torch.Tensor = None) -> None:
+    """Launch the inverse stage once: packed coefficients ``src``
+    [P, H, W] (a dtype of ``INV_STAGE_DTYPES``; may be ``coef`` itself) →
+    ``schedule``'s inverse 5/3 in the int32 ``coef`` [P, H, W] → the
+    epilogue. The P planes are frames of ``comps`` components each.
+
+    ``schedule`` is ``ops/dwt53.py:inv_schedule``'s (head_w, head_h,
+    head rows, grid rows, final_w, final_h). Epilogue "coeffs" leaves the
+    coefficients in ``coef``; "pixels" writes ``out`` (int32, may be
+    ``coef``) and "narrow" ``out`` (uint16, or int16 when ``signed``, clipped
+    to the ``bits``-bit range): the inverse RCT of components 0-2 when
+    ``mct`` and ``comps`` >= 3, then + 2^(bits-1) unless ``signed``.
+    """
+    _require(coef, torch.int32, "j2k_inv_stage coef")
+    if src.dtype not in INV_STAGE_DTYPES:
+        raise KernelLaunchError(f"j2k_inv_stage: no route for {src.dtype}")
+    _require(src, src.dtype, "j2k_inv_stage src")
+    if (src.dim() != 3 or coef.shape != src.shape or src.numel() == 0
+            or comps < 1 or src.shape[0] % comps):
+        raise KernelLaunchError(f"j2k_inv_stage: bad shapes "
+                                f"{tuple(src.shape)} → {tuple(coef.shape)} "
+                                f"of {comps} components")
+    if epilogue not in INV_STAGE_EPILOGUES:
+        raise KernelLaunchError(f"j2k_inv_stage: no epilogue {epilogue!r}")
+    lo = hi = 0
+    if epilogue == "narrow":
+        if not 1 <= bits <= 16:
+            raise KernelLaunchError(f"j2k_inv_stage: {bits} bits do not "
+                                    f"narrow to 16")
+        want = torch.int16 if signed else torch.uint16
+        lo, hi = ((-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if signed
+                  else (0, (1 << bits) - 1))
+    else:
+        want = torch.int32
+    if epilogue != "coeffs":
+        _require(out, want, "j2k_inv_stage out")
+        if out.shape != src.shape:
+            raise KernelLaunchError(f"j2k_inv_stage: out needs "
+                                    f"{tuple(src.shape)}, got "
+                                    f"{tuple(out.shape)}")
+    table = _inv_table(schedule)
+    head_w, head_h, head_rows, rows, final_w, final_h = schedule
+    p, h, w = src.shape
+    dc = 0 if signed else 1 << (bits - 1)
+    lib = _load()
+    with torch.cuda.device(src.device):
+        err = lib.gdct_j2k_inv_stage(
+            src.data_ptr(), INV_STAGE_DTYPES[src.dtype], coef.data_ptr(),
+            0 if out is None else out.data_ptr(), p // comps, comps, h, w,
+            table, len(head_rows), len(rows), head_w, head_h, final_w,
+            final_h, INV_STAGE_EPILOGUES[epilogue], int(bool(mct)),
+            _int32(dc), lo, hi, _stream(src))
+    launch_counts["j2k_inv_stage"] += 1
+    _check(lib, err, "j2k_inv_stage")
 
 
 def fdct8x8_quant(x: torch.Tensor, out: torch.Tensor, d: torch.Tensor,

@@ -40,8 +40,6 @@
 #include <algorithm>
 #include <climits>
 #include <cstdint>
-#include <mutex>
-#include <vector>
 
 #include "lifting.cuh"
 
@@ -174,45 +172,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The blocks of `kernel` that the current device holds at once with `smem`
-// bytes of shared memory each (after raising its limit to that), cached
-// per kernel, device and size, so that only a first launch queries the
-// driver. A kernel that does not fit at all is refused.
-cudaError_t resident_blocks(const void* kernel, size_t smem, int* blocks) {
-  struct Entry {
-    const void* kernel;
-    int device;
-    size_t smem;
-    int blocks;
-  };
-  static std::mutex mu;
-  static std::vector<Entry> done;
-  int device = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    for (const Entry& e : done) {
-      if (e.kernel == kernel && e.device == device && e.smem == smem) {
-        *blocks = e.blocks;
-        return cudaSuccess;
-      }
-    }
-  }
-  if ((err = gdct::reserve_smem(kernel, smem)) != cudaSuccess ||
-      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                    device)) != cudaSuccess ||
-      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess) {
-    return err;
-  }
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = per_sm * sms;
-  std::lock_guard<std::mutex> lock(mu);
-  done.push_back({kernel, device, smem, *blocks});
-  return cudaSuccess;
-}
-
 template <typename T>
 int launch(const void* src, void* coef, int n_planes, int height, int width,
            int shift, const long long* table, int n_passes, int epilogue,
@@ -252,7 +211,7 @@ int launch(const void* src, void* coef, int n_planes, int height, int width,
 
   const void* kernel = reinterpret_cast<const void*>(fwd_stage_kernel<T>);
   int resident = 0;
-  cudaError_t err = resident_blocks(kernel, smem, &resident);
+  cudaError_t err = gdct::resident_blocks(kernel, smem, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   // every block must be resident at once for grid.sync()
   const unsigned grid =

@@ -6,10 +6,11 @@ Port of ``go_dicom_codec_tpu/ops/dwt53.py:37-344``, in two lanes:
   torch functions with the reference's lifting arithmetic, shifted slices
   with edge clamps, on any device;
 - the kernel lane: for a CUDA tensor the whole forward transform is one
-  launch of ``csrc/j2k_fwd_stage.cu`` (``fwd_schedule`` is its pass
-  table); the inverse, and the forward of lines too long for shared
-  memory, run one 2D level as two launches of the lifting passes of
-  ``csrc/dwt53.cu``, one along columns and one along rows.
+  launch of ``csrc/j2k_fwd_stage.cu`` and the whole inverse one launch of
+  ``csrc/j2k_inv_stage.cu`` (``fwd_schedule`` and ``inv_schedule`` are
+  their pass tables); lines too long for shared memory run one 2D level
+  as two launches of the lifting passes of ``csrc/dwt53.cu``, one along
+  columns and one along rows.
 
 ``fwd53_multilevel_``/``inv53_multilevel_`` pick the kernel lane for a
 CUDA tensor and the plain lane for a CPU tensor; any other device raises.
@@ -268,6 +269,77 @@ def fwd_schedule(width: int, height: int, levels: int, x0: int = 0,
     return tuple(table)
 
 
+# The inverse stage's head: the coarsest levels whose window holds at most
+# this many samples run in one block a plane, in shared memory, before the
+# first grid barrier (csrc/j2k_inv_stage.cu). Chosen on the H100 from none,
+# 64² and 128² (the HEAD| lines of tools/device_bench.py, PERF.md).
+_HEAD_SAMPLES = 64 * 64
+
+
+def _head_rows(wins) -> list:
+    """The passes of the head levels ``wins`` (finest first), coarsest
+    first, on a tile of the finest window; lpb lines of ~2048 samples."""
+    head = []
+    for (w, h, lx0, ly0) in reversed(wins):
+        for vertical, even in reversed(_level_passes(h, w, lx0 % 2 == 0,
+                                                     ly0 % 2 == 0)):
+            n_lines, line_stride, n, elem_stride, _ = _pass_geometry(
+                wins[0][0], h, w, vertical)
+            lpb = max(1, min(n_lines, _ROW_SAMPLES_PER_BLOCK // n))
+            head.append((n_lines, line_stride, n, elem_stride, lpb,
+                         int(even)))
+    return head
+
+
+def _inv_schedule(width: int, height: int, levels: int, x0: int, y0: int,
+                  head_samples: int):
+    """``inv_schedule`` with a head of at most ``head_samples`` samples."""
+    wins = _level_windows(width, height, levels, x0, y0)
+    n_head = 0
+    while (n_head < len(wins)
+           and wins[-1 - n_head][0] * wins[-1 - n_head][1] <= head_samples):
+        n_head += 1
+    # fewer head levels where the tile and its lines exceed shared memory
+    while n_head and _kernels.inv_stage_smem_bytes(
+            wins[-n_head][:2] + (_head_rows(wins[-n_head:]), (), 0, 0)) > \
+            _kernels.SMEM_MAX_BYTES:
+        n_head -= 1
+    head_wins, grid_wins = wins[len(wins) - n_head:], wins[:len(wins) - n_head]
+    head_w, head_h = head_wins[0][:2] if head_wins else (0, 0)
+    rows, (done_w, done_h) = [], (head_w, head_h)
+    for (w, h, lx0, ly0) in reversed(grid_wins):
+        for vertical, even in reversed(_level_passes(h, w, lx0 % 2 == 0,
+                                                     ly0 % 2 == 0)):
+            geom = _pass_geometry(width, h, w, vertical,
+                                  _STAGE_COLS_PER_BLOCK)
+            if _kernels.dwt53_long_line(geom[2]):
+                return None
+            done = (done_w, done_h) if vertical else (done_h, done_w)
+            rows.append(geom + (int(even),) + done)
+            done_w, done_h = w, h
+    return (head_w, head_h, tuple(_head_rows(head_wins)), tuple(rows),
+            done_w, done_h)
+
+
+@functools.lru_cache(maxsize=256)
+def inv_schedule(width: int, height: int, levels: int, x0: int = 0,
+                 y0: int = 0):
+    """The inverse transform of [H, W] planes as csrc/j2k_inv_stage.cu
+    runs it: (head_w, head_h, head rows, grid rows, final_w, final_h), or
+    None when a line is too long for shared memory (the transform then
+    runs pass by pass).
+
+    The head is the top-left head_w × head_h window of the coarsest levels
+    whose windows hold at most ``_HEAD_SAMPLES`` samples; its rows (n_lines,
+    line_stride, n, elem_stride, lines_per_block, even), coarsest first,
+    address a tile of that window. The grid rows follow, coarsest first,
+    with two more columns: the window that earlier passes wrote, as
+    (lines, samples) in the pass's own order. final_w × final_h is the
+    window the whole schedule writes.
+    """
+    return _inv_schedule(width, height, levels, x0, y0, _HEAD_SAMPLES)
+
+
 def _pass_kernel_(x3: torch.Tensor, h: int, w: int, vertical: bool,
                   even: bool, inverse: bool) -> None:
     """One 1D lifting pass over the top-left h×w window of every plane of
@@ -334,7 +406,16 @@ def _fwd_multilevel_kernel_(x: torch.Tensor, levels: int, x0: int,
 
 def _inv_multilevel_kernel_(x: torch.Tensor, levels: int, x0: int,
                             y0: int) -> torch.Tensor:
-    return _multilevel_(x, levels, x0, y0, _inv_level_kernel_, inverse=True)
+    """One launch of the inverse stage, in place, or pass by pass where a
+    line is too long for shared memory."""
+    sched = inv_schedule(x.shape[-1], x.shape[-2], levels, x0, y0)
+    if sched is None:
+        return _multilevel_(x, levels, x0, y0, _inv_level_kernel_,
+                            inverse=True)
+    if x.numel():
+        x3 = _planes(x)
+        _kernels.j2k_inv_stage(x3, x3, sched, 1, "coeffs")
+    return x
 
 
 def fwd53_multilevel_(x: torch.Tensor, levels: int, x0: int = 0,
@@ -353,8 +434,9 @@ def fwd53_multilevel_(x: torch.Tensor, levels: int, x0: int = 0,
 def inv53_multilevel_(x: torch.Tensor, levels: int, x0: int = 0,
                       y0: int = 0) -> torch.Tensor:
     """Multilevel packed reconstruction of [..., H, W] int32, in place,
-    coarsest level first: two launches of csrc/dwt53.cu per level on a
-    CUDA tensor, the plain lane on a CPU tensor."""
+    coarsest level first. A CUDA tensor takes one launch of
+    csrc/j2k_inv_stage.cu (lines over 58111 samples: two launches of
+    csrc/dwt53.cu per level); a CPU tensor takes the plain lane."""
     return _lane(x, _inv_multilevel_kernel_,
                  inv53_multilevel_plain_)(x, levels, x0, y0)
 

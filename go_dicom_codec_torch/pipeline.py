@@ -9,8 +9,8 @@ Port of the J2K half of ``go_dicom_codec_tpu/pipeline.py``:
   (``fetch_coeffs``) and the reversible and irreversible decode stages.
   Every stage takes tensors on the device it should run on; on CUDA
   tensors each encode stage is one launch of the fused forward stage
-  (ops/j2k_fwd_stage.py) after the RCT, and the decode stages run the 5/3
-  through the lifting passes;
+  (ops/j2k_fwd_stage.py) after the RCT, and the reversible decode stage
+  one launch of the fused inverse stage (ops/j2k_inv_stage.py);
 - the measured transfer policy that picks the transform engine;
 - the double-buffered ``encode_frames_pipelined`` and
   ``decode_frames_pipelined``: the device transforms chunk k+1 while the
@@ -34,8 +34,9 @@ from .ops.dwt53 import fwd53_multilevel_, inv53_multilevel_
 from .ops.dwt97 import inv97_multilevel
 from .ops.mct import (dc_level_shift, ict_inverse, ict_inverse_np,
                       inv_dc_level_shift, rct_forward, rct_forward_np,
-                      rct_inverse, rct_inverse_np)
+                      rct_inverse_np)
 from .ops.j2k_fwd_stage import fwd_stage
+from .ops.j2k_inv_stage import inv_stage, narrow_pixels
 
 INT16_MAX = 32767
 ENGINES = ("auto", "device", "host")
@@ -120,25 +121,11 @@ def _j2k_decode_device_stage(packed: torch.Tensor, levels: int, x0: int,
 
     With ``narrow`` the samples are clipped to the declared range (the
     identity for conformant streams; it stops hostile coefficients from
-    wrapping through the cast) and cast to int16/uint16. The clip runs in
-    int32 because torch has no uint16 arithmetic.
+    wrapping through the cast) and cast to int16/uint16. On a CUDA tensor
+    the whole stage is one launch of csrc/j2k_inv_stage.cu.
     """
-    rec = packed.to(torch.int32, copy=True,
-                     memory_format=torch.contiguous_format)
-    rec = inv53_multilevel_(rec, levels, x0=x0, y0=y0)
-    if mct and rec.shape[1] >= 3:
-        rgb = torch.stack(rct_inverse(rec[:, 0], rec[:, 1], rec[:, 2]),
-                          dim=1)
-        rec = torch.cat([rgb, rec[:, 3:]], dim=1)
-    px = inv_dc_level_shift(rec, bits, signed)
-    return _narrow_pixels(px, bits, signed) if narrow else px
-
-
-def _narrow_pixels(px: torch.Tensor, bits: int,
-                   signed: bool) -> torch.Tensor:
-    lo, hi = ((-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if signed
-              else (0, (1 << bits) - 1))
-    return px.clamp(lo, hi).to(torch.int16 if signed else torch.uint16)
+    return inv_stage(packed, levels, x0, y0, bits, signed, mct,
+                     "narrow" if narrow else "pixels")
 
 
 def _j2k_decode_device_stage_97(fbatch: torch.Tensor, levels: int, x0: int,
@@ -157,7 +144,7 @@ def _j2k_decode_device_stage_97(fbatch: torch.Tensor, levels: int, x0: int,
                           dim=1)
         rec = torch.cat([rgb, rec[:, 3:]], dim=1)
     px = inv_dc_level_shift(torch.round(rec).to(torch.int32), bits, signed)
-    return _narrow_pixels(px, bits, signed) if narrow else px
+    return narrow_pixels(px, bits, signed) if narrow else px
 
 
 # ---- transfer policy --------------------------------------------------------

@@ -5,8 +5,9 @@ of ``bench.py:47-98``. Rows:
 
   - ``dwt53_stats``: DC shift + 5-level 5/3 + fixed-point deadzone quant +
     64×64 code-block max/bitplane stats (the bench.py encode step);
-  - ``idwt53``: dequant ×2 + inverse 5/3 + inverse DC shift + clip (the
-    bench.py decode step);
+  - ``idwt53``: dequant ×2 + inverse 5/3 + inverse DC shift + clip to
+    16 bits (the bench.py decode step; its 5/3, unshift and clip are the
+    inverse stage);
   - ``j2k_stage_narrow``: the pipelines' encode stage, 12-bit uint16
     frames → int16 coefficients and the max |coeff|;
   - ``j2k_stage_stats``: ``j2k_lossless_encode_transform``, int32 frames →
@@ -16,11 +17,11 @@ of ``bench.py:47-98``. Rows:
   - ``xplus1_ceiling``: ``x + 1``, the memory-bound ceiling of this shape.
 
 Each row runs in the kernel lane (the hand-written kernels: one launch of
-the fused forward stage for every forward 5/3) and the plain lane (the
-same step in plain torch), except the ceiling, which is plain torch only;
-the two stage rows also run the per-pass lane (torch widen and shift, two
-lifting-pass launches a level, torch epilogue: what lines too long for
-shared memory take). Inputs are device-resident 12-bit samples from
+the fused forward stage for every forward 5/3, of the fused inverse stage
+for every inverse) and the plain lane (the same step in plain torch),
+except the ceiling, which is plain torch only; the two stage rows also run
+the per-pass lane (torch widen and shift, two lifting-pass launches a
+level, torch epilogue: what lines too long for shared memory take). Inputs are device-resident 12-bit samples from
 ``numpy.random.default_rng(seed)``. A run is ``iters`` calls back to back
 between two CUDA events; a row reports the median over ``RUNS`` runs
 after one warm-up run, as ms per call and Mpx/s, and beside it the host
@@ -28,11 +29,17 @@ time it took to issue one call in the same runs (``host_ms``).
 
 The command line then shows, in the same process, where the time goes
 (``run_profile``): for every row and lane, and for the 5-level forward
-and inverse alone, the device time per call (the kernel time
-torch.profiler records over ``iters`` calls), the device operations per
-call, its largest kernels and the device's idle share, 1 − device time /
-event time; the stage rows again at a batch of ``STAGE_SMALL_BATCH``
-(the pipelines' chunk); then the same for each single lifting pass of the
+and inverse alone (fused, ten passes, plain), the device time per call
+(the kernel time torch.profiler records over ``iters`` calls), the device
+operations per call, its largest kernels and the device's idle share,
+1 − device time / event time; the stage rows again at a batch of
+``STAGE_SMALL_BATCH`` (the encode pipeline's chunk); the narrow decode
+stage (int16 coefficients → uint16 pixels: the fused inverse stage, the
+per-pass lane and plain torch) of gray 12-bit and RGB 8-bit frames at the
+batch and at ``DECODE_SMALL_BATCH`` (the decode pipeline's chunk); then
+the inverse stage's head budgets (``head_profile``: none, 64² and 128²
+samples at both batches, ``HEAD|``); then the same for each single lifting
+pass of the
 5-level transform (``iters`` launches of the one pass back to back); then
 the lifting passes' long-line route (``long_profile``): the level-1 pass
 along the 65535-sample side of [2, 16, 65535] and [2, 65535, 16] frames,
@@ -47,8 +54,9 @@ Usage:
         [--size WxH] [--iters N]
 
 Prints the card, one ``BENCH|`` JSON line per row and lane, one
-``PROFILE|`` line per step, one ``PASS|`` line per pass and one ``LONG|``
-line per long-route step and lane. Needs a CUDA device.
+``PROFILE|`` line per step, one ``HEAD|`` line per head budget and batch,
+one ``PASS|`` line per pass and one ``LONG|`` line per long-route step and
+lane. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -71,13 +79,18 @@ from ..ops.dwt53 import (_along_cols, _fwd_level_kernel_, _level_passes,
                          fwd53_multilevel_plain_, inv53_1d,
                          inv53_multilevel_, inv53_multilevel_plain_)
 from ..ops.fdct8x8_quant import fdct8x8_quant, fdct8x8_quant_plain
+from ..ops import dwt53
+from ..ops import j2k_inv_stage as istage
 from ..ops.j2k_fwd_stage import (_epilogue, _shifted, fwd_stage,
                                  fwd_stage_plain)
-from ..ops.mct import dc_level_shift, inv_dc_level_shift
+from ..ops.mct import dc_level_shift
+from ..pipeline import _pipeline_device_stage_rgb
 
 LEVELS = 5
 RUNS = 5  # timed runs per measurement, after one warm-up run
 STAGE_SMALL_BATCH = 4  # frames per chunk of the encode pipeline
+DECODE_SMALL_BATCH = 8  # frames per chunk of the decode pipeline
+HEAD_BUDGETS = (0, 64 * 64, 128 * 128)  # samples in the inverse stage's head
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 LANES = {"kernel": (fwd53_multilevel_, inv53_multilevel_, fdct8x8_quant),
          "plain": (fwd53_multilevel_plain_, inv53_multilevel_plain_,
@@ -121,10 +134,10 @@ def dwt53_stats(x: torch.Tensor, lane: str = "kernel"):
 
 
 def idwt53(q: torch.Tensor, lane: str = "kernel") -> torch.Tensor:
-    """One bench.py decode step: dequant, inverse 5/3, unshift, clip."""
-    inv = LANES[lane][1]
-    r = inv(q * 2, LEVELS)
-    return inv_dc_level_shift(r, 16, False).clamp(0, 65535)
+    """One bench.py decode step: dequant, then the inverse stage (inverse
+    5/3, unshift, clip to 16 bits)."""
+    stage = istage.inv_stage if lane == "kernel" else istage.inv_stage_plain
+    return stage(q * 2, LEVELS, bits=16, epilogue="narrow")
 
 
 def time_ms(fn, iters: int = 10) -> tuple:
@@ -208,6 +221,32 @@ def _stage_steps(x: torch.Tensor) -> dict:
                                 / HBM_BYTES_PER_S * 1e3)}
 
 
+def _decode_steps(x: torch.Tensor) -> dict:
+    """The narrow decode stage rows of gray 12-bit frames and RGB 8-bit
+    frames: {row: ({lane: step}, bound ms)}. The input is each frame's int16
+    coefficients from the forward stage; the bound: int16 read and uint16
+    written once."""
+    rng = np.random.default_rng(x.shape[0])
+    rgb = torch.as_tensor(rng.integers(0, 256, (x.shape[0], 3) + x.shape[1:],
+                                       dtype=np.int32), device=x.device)
+    inputs = {"gray": (fwd_stage(x.to(torch.uint16), 2048, LEVELS,
+                                 epilogue="narrow")[0][:, None], 12, False),
+              "rgb": (_pipeline_device_stage_rgb(rgb, 8, LEVELS, True)[0], 8,
+                      True)}
+    rows = {}
+    for name, (pk, bits, mct) in inputs.items():
+        def lanes(pk=pk, bits=bits, mct=mct):
+            args = (LEVELS, 0, 0, bits, False, mct, "narrow")
+            return {"kernel": lambda: istage.inv_stage(pk, *args),
+                    "passes": lambda: istage._epilogue(
+                        istage.inv53_passes_(istage._widened(pk), LEVELS),
+                        bits, False, mct, "narrow"),
+                    "plain": lambda: istage.inv_stage_plain(pk, *args)}
+        rows[f"j2k_decode_narrow_{name}"] = (
+            lanes(), pk.numel() * 4 / HBM_BYTES_PER_S * 1e3)
+    return rows
+
+
 def _steps(x: torch.Tensor, qt: torch.Tensor) -> dict:
     """The bench.py rows in each lane: {row: {lane: step}}."""
     q = dwt53_stats(x)[0]
@@ -265,6 +304,54 @@ def stage_profile(batch: int, height: int = 512, width: int = 512,
             for lane, fn in lanes.items()]
 
 
+def decode_profile(batch: int, height: int = 512, width: int = 512,
+                   iters: int = 10, seed: int = 0, card: str = "") -> list:
+    """Profile lines of the narrow decode stage rows in every lane, with
+    bounds."""
+    x, _ = _inputs(batch, height, width, seed)
+    card = card or card_info()
+    return [_line(fn, iters, card, step=f"{name}/{lane}", batch=batch,
+                  bound_ms=bound)
+            for name, (lanes, bound) in _decode_steps(x).items()
+            for lane, fn in lanes.items()]
+
+
+def head_profile(batches=(DECODE_SMALL_BATCH, 32), height: int = 512,
+                 width: int = 512, iters: int = 10, seed: int = 0,
+                 card: str = "") -> list:
+    """The inverse stage's head budgets: the narrow decode stage of gray
+    frames launched with the schedule of each of ``HEAD_BUDGETS``, checked
+    against the plain version; one line per budget and batch with its
+    head's extent, grid passes and shared memory a block."""
+    card = card or card_info()
+    lines = []
+    for batch in batches:
+        x, _ = _inputs(batch, height, width, seed)
+        pk = fwd_stage(x.to(torch.uint16), 2048, LEVELS,
+                       epilogue="narrow")[0]
+        want = istage.inv_stage_plain(pk, LEVELS, bits=12,
+                                      epilogue="narrow")
+        for budget in HEAD_BUDGETS:
+            sched = dwt53._inv_schedule(width, height, LEVELS, 0, 0, budget)
+            coef = torch.empty(pk.shape, dtype=torch.int32, device=pk.device)
+            out = torch.empty(pk.shape, dtype=torch.uint16, device=pk.device)
+
+            def step(sched=sched, coef=coef, out=out):
+                _kernels.j2k_inv_stage(pk, coef, sched, 1, "narrow", False,
+                                       12, False, out)
+            step()
+            if not torch.equal(out, want):
+                raise RuntimeError(f"head budget {budget}: the stage differs "
+                                   f"from its plain version")
+            lines.append(_line(
+                step, iters, card, step="inv_stage_head", batch=batch,
+                head_samples=budget, head=f"{sched[0]}x{sched[1]}",
+                grid_passes=len(sched[3]),
+                smem_bytes=_kernels.inv_stage_smem_bytes(sched),
+                bound_ms=pk.numel() * 4 / HBM_BYTES_PER_S * 1e3))
+    return lines
+
+
 def run_profile(batch: int = 32, height: int = 512, width: int = 512,
                 iters: int = 10, seed: int = 0, card: str = "") -> tuple:
     """Where the time goes, on CUDA device 0: (step lines, pass lines).
@@ -280,11 +367,14 @@ def run_profile(batch: int = 32, height: int = 512, width: int = 512,
         fns[f"fwd53_{LEVELS}lv/{lane}"] = lambda fwd=fwd: fwd(buf, LEVELS)
         fns[f"inv53_{LEVELS}lv/{lane}"] = lambda inv=inv: inv(buf, LEVELS)
     fns[f"fwd53_{LEVELS}lv/passes"] = lambda: fwd53_passes_(buf, LEVELS)
+    fns[f"inv53_{LEVELS}lv/passes"] = lambda: istage.inv53_passes_(buf,
+                                                                   LEVELS)
     fns["xplus1/plain"] = lambda: x + 1
 
     steps = [_line(fn, iters, card, step=name, batch=batch)
              for name, fn in fns.items()]
     steps += stage_profile(batch, height, width, iters, seed, card)
+    steps += decode_profile(batch, height, width, iters, seed, card)
     passes = []
     for level, (w, h, _, _) in enumerate(
             _level_windows(width, height, LEVELS, 0, 0), 1):
@@ -391,8 +481,12 @@ def main(argv=None) -> int:
         print("BENCH|" + json.dumps(r))
     steps, passes = run_profile(opts.batch, h, w, opts.iters, card=card)
     steps += stage_profile(STAGE_SMALL_BATCH, h, w, opts.iters, card=card)
+    steps += decode_profile(DECODE_SMALL_BATCH, h, w, opts.iters, card=card)
     for r in steps:
         print("PROFILE|" + json.dumps(r))
+    for r in head_profile((DECODE_SMALL_BATCH, opts.batch), h, w, opts.iters,
+                          card=card):
+        print("HEAD|" + json.dumps(r))
     for r in passes:
         print("PASS|" + json.dumps(r))
     for r in long_profile(opts.iters, card=card):

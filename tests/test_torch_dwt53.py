@@ -272,10 +272,14 @@ def test_kernel_lane_model_bit_exact(shape, origin, levels, monkeypatch,
 @pytest.mark.parametrize("shape,origin,levels", KERNEL_LANE_CASES)
 def test_long_line_model_bit_exact(shape, origin, levels, monkeypatch, rng):
     """The long-line route's model over the same matrix: with shared
-    memory cut to 9 samples, every line longer than that takes it."""
+    memory cut to 9 samples, every line longer than that takes it (frames
+    whose lines all fit take the inverse stage, here its model)."""
+    from test_torch_j2k_inv_stage import _inv_stage_model
+
     monkeypatch.setattr(_kernels, "SMEM_MAX_BYTES", 9 * 4)
     routes = []
     monkeypatch.setattr(_kernels, "dwt53_pass", _route_model(routes))
+    monkeypatch.setattr(_kernels, "j2k_inv_stage", _inv_stage_model([]))
     x = rng.integers(-4096, 4096, shape).astype(np.int32)
     got = port._multilevel_(torch.tensor(x), levels, *origin,
                             port._fwd_level_kernel_, inverse=False)
@@ -331,7 +335,7 @@ def test_route_by_shape():
 
 
 @pytest.mark.parametrize("source", ["dwt53.cu", "j2k_fwd_stage.cu",
-                                    "lifting.cuh"])
+                                    "j2k_inv_stage.cu", "lifting.cuh"])
 def test_lifting_kernels_declare_no_static_shared_memory(source):
     """The routes give a block SMEM_MAX_BYTES of dynamic shared memory,
     Hopper's whole opt-in limit: a static __shared__ array beside it would

@@ -36,7 +36,7 @@ def _stage_model(launches):
                maxabs=None, cb_max=None, cb_bits=None):
         assert src.dtype in _kernels.FWD_STAGE_DTYPES
         assert coef.dtype == torch.int32 and coef.shape == src.shape
-        assert len(schedule) <= _kernels.FWD_STAGE_MAX_PASSES
+        assert len(schedule) <= _kernels.STAGE_MAX_PASSES
         launches.append(epilogue)
         # pass 0 reads the input in its own type, widened, less the shift
         coef.copy_(torch.as_tensor(

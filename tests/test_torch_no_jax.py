@@ -4,7 +4,8 @@ The machine with the GPU has no jax, and any module of the JAX package
 imports jax through the package's __init__. So the port, its device bench
 and chip_smoke.py must import neither, even transitively. A subprocess
 blocks ``jax`` before anything is imported and runs the CPU slice once:
-the device stages, the device bench, and encode and decode through the
+the device stages (the encode stages, the decode stage and the inverse
+stage under it), the device bench, and encode and decode through the
 port's codec registry.
 """
 
@@ -38,6 +39,10 @@ host = P.fetch_coeffs(stage, gray, 12, False, 5)
 px = P._j2k_decode_device_stage(torch.as_tensor(host)[:, None], 5, 0, 0, 12,
                                 False, mct=False, narrow=True)
 assert torch.equal(px[:, 0].to(torch.int32), gray)
+from go_dicom_codec_torch.ops.j2k_inv_stage import inv_stage
+px = inv_stage(torch.as_tensor(host).to(torch.int16), 5, bits=12,
+               epilogue="narrow")
+assert px.dtype == torch.uint16 and torch.equal(px.to(torch.int32), gray)
 
 rgb = torch.as_tensor(rng.integers(0, 256, (1, 3, 24, 40), dtype=np.int32))
 coeffs, _, bits = P.j2k_rgb_lossless_encode_transform(rgb, 3, 8)
