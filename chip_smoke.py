@@ -7,9 +7,15 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    and fails without a CUDA device;
 2. builds every kernel of ``go_dicom_codec_torch/csrc`` with nvcc;
 3. holds each kernel against its plain torch version on the card:
-   the fused DCT + quant at [32, 512, 512] (|Δ| ≤ 1 on < 0.5 % of the
-   coefficients: float summation order differs); the fused forward stage
-   bit-exact at [32, 512, 512] uint16 in all three epilogues; the fused
+   the fused DCT + quant at [32, 512, 512] and at ragged shapes (W of
+   five blocks, H = 8, B = 1, odd B × H/8) with |Δ| ≤ 1 on < 0.5 % of the
+   coefficients (float summation order differs), both against a float64
+   result (a difference only within the float32 error of a rounding
+   tie), a misaligned view refused by the wrapper and copied by the ops
+   layer; saturating float → int32 casts (the DCT on INT32_MAX and
+   INT32_MIN planes, ``quantize``, the rounding helper, the 9/7 decode
+   stage on NaN, ±inf and ±3e9) equal to the CPU's; the fused forward
+   stage bit-exact at [32, 512, 512] uint16 in all three epilogues; the fused
    inverse stage bit-exact at [32, 1, 512, 512] int16 → uint16 and
    [8, 3, 512, 512] with the RCT, on int16 and int32 input, in all three
    epilogues; the fused forward and inverse 5/3, the forward and inverse
@@ -33,19 +39,22 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    beside it, the fused inverse stage once per decode chunk and no inverse
    lifting pass, and the pipelines must have run on the device engine
    (their ``pipeline.*`` events; the adapters' scalar fallback would hide
-   a failure). Two gray 16 × 60001 frames round-trip through .90 the same
-   way, through the lifting passes' long-line route. Part-2
-   matrix streams (.92/.93) take the scalar codec's device branches and
-   must equal the same codec on the CPU. It also forces the
+   a failure), and no call may launch the float DCT. Two gray 16 × 60001
+   frames round-trip through .90 the same way, through the lifting
+   passes' long-line route. Part-2 matrix streams (.92/.93) take the
+   scalar codec's device branches and must equal the same codec on the
+   CPU. It also forces the
    int16-overflow redo once. Encode and decode frames/s of the
    registry path and of the same calls through ``make_registry(cuda:0,
    engine="host")``, the device's share of an encode and of a decode
    (torch.profiler over one registry call) and the lossy PSNR
    go on lines of their own;
-6. prints the device bench rows, one JSON object of kernel results (the
-   lifting passes' with a ``long_route`` entry: its launches in the main
-   path and the level-1 pass of [2, 16, 65535] and [2, 65535, 16] timed
-   against its plain version and bound), and as its last line
+6. prints the device bench rows, one JSON object of kernel results
+   (each with its event, device and host ms; the DCT's with an x+1 copy
+   of its input timed beside it; the lifting passes' with a
+   ``long_route`` entry: its launches in the main path and the level-1
+   pass of [2, 16, 65535] and [2, 65535, 16] timed against its plain
+   version and bound), and as its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits non-zero and prints no ok line. Imports no JAX.
@@ -64,7 +73,9 @@ import go_dicom_codec_torch as gdc
 from go_dicom_codec_torch import _kernels, native
 from go_dicom_codec_torch import pipeline as P
 from go_dicom_codec_torch.codecs import j2k_adapters
-from go_dicom_codec_torch.ops.dct8x8 import LUMA_QUANT, scale_quant_table
+from go_dicom_codec_torch.ops.convert import round_to_int32_sat
+from go_dicom_codec_torch.ops.dct8x8 import (LUMA_QUANT, _basis, quantize,
+                                            scale_quant_table, to_blocks)
 from go_dicom_codec_torch.ops.dwt53 import (_level_passes, _level_windows,
                                             fwd53_multilevel_,
                                             fwd53_multilevel_plain_,
@@ -100,6 +111,15 @@ SOURCES = {
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM outside the tensor cores
+INT32_MAX, INT32_MIN = 2147483647, -2147483648
+# shapes of the DCT kernel's ragged edges: W of five blocks (a tile and a
+# masked part), H = 8, B = 1, and B × H/8 odd and not a multiple of the
+# warps of a grid
+DCT_RAGGED = ((1, 8, 40), (3, 8, 40), (1, 64, 40), (5, 24, 136), (7, 8, 8))
+# float32 → int32 casts that must saturate as XLA's: out of range both
+# ways, NaN, ±inf, the largest float32 below 2^31, 2^31, -2^31, ties
+SATURATE = (3e9, -3e9, float("nan"), float("inf"), float("-inf"),
+            2147483520.0, 2.0 ** 31, -2.0 ** 31, 2.5, -2.5, 0.5)
 # the longest lines the fused stage holds, then lines that take the
 # lifting passes' long-line route
 LONG_SHAPES = ((1, 8, 58111), (1, 58111, 8), (1, 8, 60001), (1, 60001, 8),
@@ -115,19 +135,132 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def dct_f64_check(x, qt, got, label: str) -> int:
+    """``got`` (a DCT result of x) against the float64 result of the
+    kernel's float32 inputs (samples less the shift, D, Q): where they
+    differ, the exact quotient must lie within the float32 error of a
+    half-integer, so that only a rounding tie can flip. Returns how many
+    coefficients differ.
+
+    The margin, from the float32 error of the two 8-term sums: each sum
+    of float32 products is off by at most γ8 Σ|terms| (γ8 = 8u / (1 -
+    8u), u = 2^-24). A row of D has unit 2-norm, so Σ_k |D[u][k]| ≤ √8:
+    Y = D·X is off by at most √8 γ8 M (M the block's largest |sample|),
+    and a row of Y has 2-norm at most 8 M. Z = Y·Dᵀ is then off by at
+    most γ8 · 8 M (its own sums) + √8 · √8 γ8 M (Y's error carried) =
+    16 γ8 M. The divide adds u |Z/Q|, and adding 0.5 before the floor
+    at most as much again: margin = 16 γ8 M / Q + 2^-22 |Z/Q|, about
+    0.005 at 12-bit input (M ≤ 2048, Q ≥ 3)."""
+    xf = to_blocks((x.to(torch.float32) - DCT_SHIFT).to(torch.float64))
+    d = _basis(x.device).to(torch.float64)
+    exact = (torch.einsum("ux,...xy,vy->...uv", d, xf, d)
+             / qt.reshape(8, 8).to(torch.float64))
+    m = xf.abs().amax(dim=(-2, -1), keepdim=True)
+    gamma8 = 8 * 2.0 ** -24 / (1 - 8 * 2.0 ** -24)
+    margin = (16 * gamma8 * m / qt.reshape(8, 8).to(torch.float64)
+              + 2.0 ** -22 * exact.abs())
+    r = exact.abs()
+    want = round_to_int32_sat(torch.sign(exact) * torch.floor(r + 0.5))
+    differ = to_blocks(got) != want
+    tie = ((r - torch.floor(r)) - 0.5).abs()
+    n = int(differ.sum())
+    check(bool((tie[differ] <= margin[differ]).all()),
+          f"{label}: a coefficient differs from the float64 result away "
+          f"from a rounding tie")
+    return n
+
+
 def compare_dct(x, qt) -> int:
-    got = fdct8x8_quant(x, qt, DCT_SHIFT)
-    want = fdct8x8_quant_plain(x, qt, DCT_SHIFT)
-    d = (got - want).abs()
-    err, frac = int(d.max()), float((d != 0).float().mean())
-    print(f"fdct8x8_quant vs plain: max |d| {err}, differing {frac:.6f}")
-    check(err <= 1 and frac < 0.005, "fdct8x8_quant outside tolerance")
+    """The fused DCT against its plain version (|Δ| ≤ 1 on < 0.5 % of the
+    coefficients: float summation order differs) and both against the
+    float64 result (``dct_f64_check``), at [32, 512, 512] and the ragged
+    shapes; a misaligned view is refused by the wrapper and copied by the
+    ops layer."""
+    err = 0
+    rng = np.random.default_rng(SEED + 1)
+    for shape in ((B, H, W),) + DCT_RAGGED:
+        xs = x if shape == (B, H, W) else torch.as_tensor(
+            rng.integers(0, 1 << 12, shape, dtype=np.int32), device=x.device)
+        got = fdct8x8_quant(xs, qt, DCT_SHIFT)
+        want = fdct8x8_quant_plain(xs, qt, DCT_SHIFT)
+        d = (got - want).abs()
+        e, frac = int(d.max()), float((d != 0).float().mean())
+        n_k = dct_f64_check(xs, qt, got, f"fdct8x8_quant {shape}")
+        n_p = dct_f64_check(xs, qt, want, f"fdct8x8_quant_plain {shape}")
+        print(f"fdct8x8_quant vs plain {shape}: max |d| {e}, differing "
+              f"{frac:.6f}; off the float64 result at a tie: kernel {n_k}, "
+              f"plain {n_p}")
+        check(e <= 1 and frac < 0.005, f"fdct8x8_quant {shape} outside "
+              f"tolerance")
+        err = max(err, e)
     # a ragged plane goes through the edge-replicating wrapper
     plane = x[0, :61, :37]
     got = encode_plane_blocks(plane, qt, DCT_SHIFT)
     want = encode_plane_blocks(plane.cpu(), qt.cpu(), DCT_SHIFT).to(x.device)
     check(max_abs_diff(got, want) <= 1, "encode_plane_blocks [61, 37]")
+    # a view off the 16-byte grid: the wrapper refuses it, the ops layer
+    # copies it
+    flat = x.reshape(-1)[1:1 + 3 * 8 * 40]
+    odd = flat.view(3, 8, 40)
+    check(not _kernels.aligned16(odd), "the test view is aligned")
+    try:
+        _kernels.fdct8x8_quant(odd, torch.empty_like(odd),
+                               _basis(x.device).reshape(64), qt, DCT_SHIFT)
+        check(False, "fdct8x8_quant launched on a misaligned view")
+    except _kernels.KernelLaunchError:
+        pass
+    check(max_abs_diff(fdct8x8_quant(odd, qt, DCT_SHIFT),
+                       fdct8x8_quant_plain(odd, qt, DCT_SHIFT)) <= 1,
+          "fdct8x8_quant of a misaligned view")
     return err
+
+
+def saturation(dev, qt) -> None:
+    """Float → int32 saturates on the card as XLA's cast does: the DCT
+    kernel and its plain version on planes of INT32_MAX and INT32_MIN
+    samples (DC / 3 is past int32: exact; the rest, float residue of
+    2^31-sized sums, within the float64 margin), ``quantize`` and the
+    rounding helper on SATURATE, and the 9/7 decode stage with SATURATE
+    planted in its coefficients, each equal to the same call on the
+    CPU."""
+    for sample in (INT32_MAX, INT32_MIN):
+        x = torch.full((2, 16, 40), sample, dtype=torch.int32, device=dev)
+        got = fdct8x8_quant(x, qt, DCT_SHIFT)
+        want = fdct8x8_quant_plain(x, qt, DCT_SHIFT)
+        host = fdct8x8_quant_plain(x.cpu(), qt.cpu(), DCT_SHIFT)
+        for name, r in (("kernel", got), ("plain", want), ("cpu", host)):
+            check(bool((r[:, ::8, ::8] == sample).all()),
+                  f"fdct8x8_quant {name}: DC of {sample} does not saturate")
+        dct_f64_check(x, qt, got, f"fdct8x8_quant of {sample}")
+        dct_f64_check(x, qt, want, f"fdct8x8_quant_plain of {sample}")
+        print(f"fdct8x8_quant of {sample} samples: DC {int(got[0, 0, 0])}; "
+              f"kernel == CPU plain: {bool(got.cpu().equal(host))}, "
+              f"max |kernel - plain| {max_abs_diff(got, want)}")
+    v = torch.tensor(SATURATE, dtype=torch.float32)
+    check(round_to_int32_sat(v.to(dev)).cpu().equal(round_to_int32_sat(v)),
+          "round_to_int32_sat differs on the card")
+    c = torch.zeros((2, 8, 8))
+    c.view(-1)[:len(SATURATE)] = v
+    c.view(-1)[64:64 + len(SATURATE)] = -v
+    ones = torch.ones(64)
+    check(quantize(c.to(dev), ones.to(dev)).cpu().equal(quantize(c, ones)),
+          "quantize differs on the card")
+    for mct in (False, True):
+        f = torch.full((1, 3 if mct else 1, 2, 6), 1234.25)
+        f.view(f.shape[1], -1)[0, :len(SATURATE)] = v
+        if mct:   # chroma 0 under SATURATE, ±inf beside it
+            f.view(3, -1)[1:, :len(SATURATE)] = 0.0
+            f.view(3, -1)[1:, -1] = torch.tensor([float("inf"),
+                                                  float("-inf")])
+        for signed in (True, False):
+            for narrow in (False, True):
+                args = (0, 0, 0, 12, signed, mct, narrow)
+                got = P._j2k_decode_device_stage_97(f.to(dev), *args)
+                check(got.cpu().equal(P._j2k_decode_device_stage_97(f, *args)),
+                      f"_j2k_decode_device_stage_97 {args} differs on the "
+                      f"card")
+    print("saturating casts: the DCT kernel and plain version, quantize, "
+          "the rounding helper and the 9/7 decode stage agree with the CPU")
 
 
 def compare_dwt(x: torch.Tensor, levels: int, x0: int = 0,
@@ -293,26 +426,37 @@ def round_trip_rgb(rng, dev) -> None:
     print(f"rgb round trip [{RGB_FRAMES}, 3, {H}, {W}] bit-exact")
 
 
-def bound(nbytes: float, nops: float) -> tuple:
-    """The least time the card could take: (ms, "bytes" or "operations"),
-    the bytes over HBM's rate against the integer and float operations
-    over the float32 rate outside the tensor cores."""
+def bound(nbytes: float, nops: float) -> dict:
+    """The least time the card could take: {"bound_ms", "bound_by": "bytes"
+    or "operations"}, the bytes over HBM's rate against the integer and
+    float operations over the float32 rate outside the tensor cores."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops) * 1e3, by
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": by}
 
 
-def time_kernels(dev, rng, dct_ms: tuple) -> dict:
-    """Each kernel's (ms, plain ms, bound ms, bound by) at the main path's
-    shapes. The lifting passes: the 5-level transform of [B, H, W] through
-    them, in place on one buffer, over the passes it launches (each pass
-    reads and writes its window once, ~4 operations a sample). The fused
-    forward stage: the pipelines' narrow stage of [B, H, W] uint16 (reads 2
-    bytes and writes 2 a sample; ~4 operations a sample and pass, 3 in the
-    epilogue). The fused inverse stage: the pipeline's narrow decode stage
-    of [B, 1, H, W] int16 coefficients (2 bytes in and 2 out a sample; ~4
-    operations a sample and pass, 4 in the epilogue). The DCT: int32 in
-    and out, 35 operations a sample."""
+def timing(fn, n: int = 1) -> dict:
+    """One call of ``fn`` over its ``n`` launches: the CUDA-event time of
+    ten calls in a row (``ms``), the host time to issue one call
+    (``host_ms``) and the device time torch.profiler records
+    (``device_ms``), each divided by ``n``."""
+    ms, host = device_bench.time_ms(fn)
+    dev_ms = device_bench.device_ms(fn)[0]
+    return {"ms": ms / n, "host_ms": host / n, "device_ms": dev_ms / n}
+
+
+def time_kernels(dev, rng, qt) -> dict:
+    """Each kernel's times (``timing``), plain ms, bound ms and bound by
+    at the main path's shapes. The lifting passes: the 5-level transform
+    of [B, H, W] through them, in place on one buffer, over the passes it
+    launches (each pass reads and writes its window once, ~4 operations a
+    sample). The fused forward stage: the pipelines' narrow stage of
+    [B, H, W] uint16 (reads 2 bytes and writes 2 a sample; ~4 operations
+    a sample and pass, 3 in the epilogue). The fused inverse stage: the
+    pipeline's narrow decode stage of [B, 1, H, W] int16 coefficients (2
+    bytes in and 2 out a sample; ~4 operations a sample and pass, 4 in the
+    epilogue). The DCT: [B, H, W] int32 in and out, 35 operations a
+    sample, beside an x+1 copy of the same tensor."""
     buf = torch.as_tensor(rng.integers(-2048, 2048, (B, H, W),
                                        dtype=np.int32), device=dev)
     window = sum(B * h * w * len(_level_passes(h, w, True, True))
@@ -325,25 +469,34 @@ def time_kernels(dev, rng, dct_ms: tuple) -> dict:
         before = _kernels.launch_counts[name]
         k(buf, LEVELS)
         n = _kernels.launch_counts[name] - before
-        k_ms = device_bench.time_ms(lambda: k(buf, LEVELS))[0]
+        tk = timing(lambda: k(buf, LEVELS), n)
         p_ms = device_bench.time_ms(lambda: p(buf, LEVELS))[0]
         print(f"{name}: {n} passes per {LEVELS}-level transform, "
-              f"{k_ms:.4f} ms kernel, {p_ms:.4f} ms plain")
-        t[name] = (k_ms / n, p_ms / n, *bound(8 * window / n, 4 * window / n))
+              f"{tk['ms'] * n:.4f} ms kernel, {p_ms:.4f} ms plain")
+        t[name] = {**tk, "plain_ms": p_ms / n,
+                   **bound(8 * window / n, 4 * window / n)}
     x16 = buf.to(torch.uint16)
-    k_ms = device_bench.time_ms(
-        lambda: fwd_stage(x16, 2048, LEVELS, epilogue="narrow"))[0]
-    p_ms = device_bench.time_ms(
-        lambda: fwd_stage_plain(x16, 2048, LEVELS, epilogue="narrow"))[0]
-    t["j2k_fwd_stage"] = (k_ms, p_ms, *bound(4 * x16.numel() + 4,
-                                             4 * window + 3 * x16.numel()))
+    t["j2k_fwd_stage"] = {
+        **timing(lambda: fwd_stage(x16, 2048, LEVELS, epilogue="narrow")),
+        "plain_ms": device_bench.time_ms(lambda: fwd_stage_plain(
+            x16, 2048, LEVELS, epilogue="narrow"))[0],
+        **bound(4 * x16.numel() + 4, 4 * window + 3 * x16.numel())}
     pk = fwd_stage(x16, 2048, LEVELS, epilogue="narrow")[0][:, None]
     args = (LEVELS, 0, 0, 12, False, False, "narrow")
-    k_ms = device_bench.time_ms(lambda: inv_stage(pk, *args))[0]
-    p_ms = device_bench.time_ms(lambda: inv_stage_plain(pk, *args))[0]
-    t["j2k_inv_stage"] = (k_ms, p_ms, *bound(4 * pk.numel(),
-                                             4 * window + 4 * pk.numel()))
-    t["fdct8x8_quant"] = (*dct_ms, *bound(8 * B * H * W, 35 * B * H * W))
+    t["j2k_inv_stage"] = {
+        **timing(lambda: inv_stage(pk, *args)),
+        "plain_ms": device_bench.time_ms(
+            lambda: inv_stage_plain(pk, *args))[0],
+        **bound(4 * pk.numel(), 4 * window + 4 * pk.numel())}
+    x = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W), dtype=np.int32),
+                        device=dev)
+    copy = timing(lambda: x + 1)
+    t["fdct8x8_quant"] = {
+        **timing(lambda: fdct8x8_quant(x, qt, DCT_SHIFT)),
+        "plain_ms": device_bench.time_ms(
+            lambda: fdct8x8_quant_plain(x, qt, DCT_SHIFT))[0],
+        **bound(8 * B * H * W, 35 * B * H * W),
+        "xplus1_ms": copy["ms"], "xplus1_device_ms": copy["device_ms"]}
     return t
 
 
@@ -357,10 +510,10 @@ def time_long_route() -> dict:
     for s in device_bench.long_pass_steps(SEED):
         k_ms = device_bench.time_ms(s["kernel"])[0]
         p_ms = device_bench.time_ms(s["plain"])[0]
-        b_ms, b_by = bound(8 * s["samples"], 4 * s["samples"])
         name = "dwt53_inv_pass" if s["inverse"] else "dwt53_fwd_pass"
         out[name][f"{s['axis']} {s['shape']}"] = {
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
+            "ms": k_ms, "plain_ms": p_ms,
+            **bound(8 * s["samples"], 4 * s["samples"])}
     return out
 
 
@@ -439,6 +592,9 @@ def registry_round_trip(registry, host_registry, uid, frames, bits, rgb):
     _kernels.reset_launch_counts()
     codec.decode(enc, dec)
     launches["decode"] = dict(_kernels.launch_counts)
+    check(launches["encode"]["fdct8x8_quant"] == 0
+          and launches["decode"]["fdct8x8_quant"] == 0,
+          f"the codec path launched the float DCT {launches}")
     runs = pipeline_runs()
     n = len(frames)
     streams = [enc.get_frame(i) for i in range(n)]
@@ -588,9 +744,12 @@ def codec_phase(rng, dev, card: str) -> dict:
             _kernels.reset_launch_counts()
             reg.get_codec(uid).encode(src, enc, params)
             fwd = _kernels.launch_counts["j2k_fwd_stage"]
+            dct = _kernels.launch_counts["fdct8x8_quant"]
             _kernels.reset_launch_counts()
             reg.get_codec(uid).decode(enc, dec)
             inv = _kernels.launch_counts["j2k_inv_stage"]
+            check(dct == _kernels.launch_counts["fdct8x8_quant"] == 0,
+                  f"{uid}: the codec path launched the float DCT")
             got.append(([enc.get_frame(i) for i in range(2)],
                         [dec.get_frame(i) for i in range(2)], fwd, inv))
         (card_enc, card_dec, fwd, inv), (cpu_enc, cpu_dec, _, _) = got
@@ -670,6 +829,7 @@ def main() -> int:
     x = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W), dtype=np.int32),
                         device=dev)
     errs = {"fdct8x8_quant": compare_dct(x, qt), **compare_dwt_all(rng, dev)}
+    saturation(dev, qt)
     errs["j2k_fwd_stage"] = max(errs["j2k_fwd_stage"],
                                 compare_stage(x.to(torch.uint16)))
     errs["j2k_inv_stage"] = max(errs["j2k_inv_stage"], compare_inv_stage(
@@ -698,18 +858,21 @@ def main() -> int:
           f"{time.perf_counter() - t_native:.2f} s")
     codec_phase(rng, dev, card)
 
-    ms = {r["row"] + "/" + r["lane"]: r["ms"] for r in rows}
-    times = time_kernels(dev, rng, (ms["dct8x8_quant_pallas/kernel"],
-                                    ms["dct8x8_quant_pallas/plain"]))
+    times = time_kernels(dev, rng, qt)
     long_times = time_long_route()
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
-        k_ms, p_ms, b_ms, b_by = times[name]
+        tk = times[name]
         kernels.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": errs[name], "ms": k_ms,
-                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": None})
+                        "max_abs_err": errs[name], "ms": tk["ms"],
+                        "device_ms": tk["device_ms"],
+                        "host_ms": tk["host_ms"], "plain_ms": tk["plain_ms"],
+                        "bound_ms": tk["bound_ms"],
+                        "bound_by": tk["bound_by"], "library_ms": None})
+        if "xplus1_ms" in tk:
+            kernels[-1].update(xplus1_ms=tk["xplus1_ms"],
+                               xplus1_device_ms=tk["xplus1_device_ms"])
         if name in long_times:
             kernels[-1]["long_route"] = {"launches": long_launches[name],
                                          **long_times[name]}

@@ -156,6 +156,12 @@ def _require(x: torch.Tensor, dtype: torch.dtype, name: str) -> None:
         raise KernelLaunchError(f"{name}: expected a contiguous tensor")
 
 
+def aligned16(x: torch.Tensor) -> bool:
+    """True when ``x``'s first element sits on a 16-byte boundary, as a
+    kernel's 16-byte vector loads and stores need."""
+    return x.data_ptr() % 16 == 0
+
+
 def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
@@ -414,11 +420,16 @@ def fdct8x8_quant(x: torch.Tensor, out: torch.Tensor, d: torch.Tensor,
                   qtable: torch.Tensor, level_shift: float) -> None:
     """Launch the fused 8×8 DCT + quant kernel: int32 ``x`` [B, H, W]
     (H % 8 == W % 8 == 0) → int32 ``out`` of the same shape, raster order
-    within each 8×8 block. ``d`` and ``qtable`` are float32 [64]."""
+    within each 8×8 block. ``d`` and ``qtable`` are float32 [64]. The
+    kernel moves rows in 16-byte pieces: ``x`` and ``out`` must start on a
+    16-byte boundary (a fresh tensor does; a view may not)."""
     _require(x, torch.int32, "fdct8x8_quant")
     _require(out, torch.int32, "fdct8x8_quant out")
     _require(d, torch.float32, "fdct8x8_quant d")
     _require(qtable, torch.float32, "fdct8x8_quant qtable")
+    if not (aligned16(x) and aligned16(out)):
+        raise KernelLaunchError("fdct8x8_quant: x and out must start on a "
+                                "16-byte boundary")
     if x.dim() != 3 or out.shape != x.shape:
         raise KernelLaunchError(f"fdct8x8_quant: bad shapes "
                                 f"{tuple(x.shape)} → {tuple(out.shape)}")

@@ -25,6 +25,7 @@ import torch
 from ..codestream import j2k
 from ..entropy.ebcot import T1Decoder, T1Encoder
 from ..errors import CorruptStreamError, UnsupportedFormatError
+from ..ops.convert import round_to_int32_sat
 from ..ops.dwt53 import fwd53_multilevel_, inv53_multilevel_
 from ..ops.dwt97 import fwd97_multilevel, inv97_multilevel
 from ..ops.mct import (dc_level_shift, dc_level_shift_np, ict_forward,
@@ -692,7 +693,7 @@ class J2KEncoder:
                 comps = comps.to(torch.float32, copy=True)
                 comps[idx] = sub
             if lossless:
-                comps = torch.round(comps).to(torch.int32)
+                comps = round_to_int32_sat(comps)
         elif self.params.mct_matrix is not None:
             from ..ops.mct import mct_matrix_forward
             m = torch.as_tensor(np.asarray(self.params.mct_matrix,
@@ -702,7 +703,7 @@ class J2KEncoder:
                     if self.params.mct_offsets else None)
             comps = mct_matrix_forward(comps, m, offs)
             if lossless:
-                comps = torch.round(comps).to(torch.int32)
+                comps = round_to_int32_sat(comps)
         if lossless:
             if use_mct and ncomp == 3 and self.params.mct_matrix is None:
                 y, u, v = rct_forward(comps[0], comps[1], comps[2])
@@ -2035,8 +2036,8 @@ class J2KDecoder:
                 rec = inv53_multilevel_(_to_device(packed, self.device),
                                         eff_levels, x0=etx0, y0=ety0)
                 if mct_bindings_inv:
-                    rec = torch.round(_apply_mct_bindings_inverse(
-                        rec, mct_bindings_inv)).to(torch.int32)
+                    rec = round_to_int32_sat(_apply_mct_bindings_inverse(
+                        rec, mct_bindings_inv))
                 elif cod.mct == 1 and ncomp >= 3:
                     r_, g_, b_ = rct_inverse(rec[0], rec[1], rec[2])
                     rec = torch.stack([r_, g_, b_]
@@ -2075,7 +2076,7 @@ class J2KDecoder:
                     r_, g_, b_ = ict_inverse(rec[0], rec[1], rec[2])
                     rec = torch.stack([r_, g_, b_]
                                       + [rec[i] for i in range(3, ncomp)])
-                rec = torch.round(rec).to(torch.int32)
+                rec = round_to_int32_sat(rec)
         else:
             # COC-heterogeneous styles and/or XRsiz/YRsiz-subsampled
             # grids: per-component inverse transforms on each component's
@@ -2110,9 +2111,9 @@ class J2KDecoder:
                         pk, (ctx0, cty0, ctx1, cty1), lv_c,
                         J2KEncoder._band_deltas(qcds[c], cod_c.num_levels,
                                                 depth))
-                    rc = torch.round(inv97_multilevel(
+                    rc = round_to_int32_sat(inv97_multilevel(
                         _to_device(fp[None], self.device), lv_c,
-                        x0=ctx0, y0=cty0)[0]).to(torch.int32).cpu().numpy()
+                        x0=ctx0, y0=cty0)[0]).cpu().numpy()
                 if (cth, ctw) != (th, tw):
                     up = np.asarray(rc)
                     ry = -(-th // max(cth, 1))

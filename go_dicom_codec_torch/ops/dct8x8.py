@@ -17,6 +17,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .convert import saturate_int32
+
 
 def _dct_matrix() -> np.ndarray:
     """Orthonormal 8-point DCT-II matrix D; F = D f Dᵀ gives T.81 F(u,v)."""
@@ -75,11 +77,12 @@ def fdct8x8(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def quantize(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
-    """Round-half-away(F/Q) → int32 (encoder.go:458-465 semantics)."""
+    """Round-half-away(F/Q) → int32 (encoder.go:458-465 semantics),
+    saturating as the reference's cast does (NaN → 0)."""
     q = qtable.reshape((1,) * (coeffs.ndim - 2) + (8, 8)).to(torch.float32)
     r = coeffs / q
-    return torch.where(r >= 0, torch.floor(r + 0.5),
-                       -torch.floor(-r + 0.5)).to(torch.int32)
+    return saturate_int32(torch.where(r >= 0, torch.floor(r + 0.5),
+                                      -torch.floor(-r + 0.5)))
 
 
 def to_blocks(plane: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,8 @@
 ``csrc/fdct8x8_quant.cu`` for a CUDA tensor and runs the plain version,
 ``quantize(fdct8x8(to_blocks(x - shift)))``, for a CPU tensor. Unlike the
 TPU kernel it needs only H % 8 == W % 8 == 0 (no W % 128 lane rule, no
-block-diagonal Dᵀ).
+block-diagonal Dᵀ). The kernel moves 16 bytes at a time, so a view that
+does not start on a 16-byte boundary is copied first.
 
 Like the reference kernel it is a benchmark kernel, kept off every codec
 path: lossy JPEG codes through the integer islow DCT.
@@ -16,7 +17,7 @@ import torch
 
 from .. import _kernels
 from .dct8x8 import (_basis, fdct8x8, from_blocks, pad_replicate_to_8,
-                     quantize, tables_from_numpy, to_blocks)
+                     quantize, to_blocks)
 
 
 def fdct8x8_quant_plain(x: torch.Tensor, qtable,
@@ -37,10 +38,14 @@ def fdct8x8_quant(x: torch.Tensor, qtable,
         return fdct8x8_quant_plain(x, qtable, level_shift)
     if x.device.type != "cuda":
         raise ValueError(f"fdct8x8_quant: no lane for device {x.device}")
-    d, q = tables_from_numpy(_basis(x.device), qtable, x.device)
+    q = torch.as_tensor(qtable, dtype=torch.float32,
+                        device=x.device).reshape(64).contiguous()
     x = x.to(torch.int32).contiguous()
+    if not _kernels.aligned16(x):   # a view off the 16-byte grid
+        x = x.clone()
     out = torch.empty_like(x)
-    _kernels.fdct8x8_quant(x, out, d.reshape(64), q, level_shift)
+    _kernels.fdct8x8_quant(x, out, _basis(x.device).view(64), q,
+                           level_shift)
     return out
 
 

@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .convert import round_to_int32_sat
+
 
 def dc_level_shift(x: torch.Tensor, bits: int, signed: bool) -> torch.Tensor:
     """Forward DC shift: unsigned samples centered by -2^(bits-1)."""
@@ -125,18 +127,14 @@ def ict_inverse_np(y, cb, cr):
     return r, g, b
 
 
-def _rint32(v: torch.Tensor) -> torch.Tensor:
-    return torch.round(v).to(torch.int32)
-
-
 def ict_forward_int(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
     """ICT with round-to-nearest int32 results."""
-    return tuple(_rint32(v) for v in ict_forward(r, g, b))
+    return tuple(round_to_int32_sat(v) for v in ict_forward(r, g, b))
 
 
 def ict_inverse_int(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor):
     """Inverse ICT with round-to-nearest int32 results."""
-    return tuple(_rint32(v) for v in ict_inverse(
+    return tuple(round_to_int32_sat(v) for v in ict_inverse(
         y.to(torch.float32), cb.to(torch.float32), cr.to(torch.float32)))
 
 

@@ -30,6 +30,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from .ops.convert import round_to_int32_sat
 from .ops.dwt53 import fwd53_multilevel_, inv53_multilevel_
 from .ops.dwt97 import inv97_multilevel
 from .ops.mct import (dc_level_shift, ict_inverse, ict_inverse_np,
@@ -143,7 +144,7 @@ def _j2k_decode_device_stage_97(fbatch: torch.Tensor, levels: int, x0: int,
         rgb = torch.stack(ict_inverse(rec[:, 0], rec[:, 1], rec[:, 2]),
                           dim=1)
         rec = torch.cat([rgb, rec[:, 3:]], dim=1)
-    px = inv_dc_level_shift(torch.round(rec).to(torch.int32), bits, signed)
+    px = inv_dc_level_shift(round_to_int32_sat(rec), bits, signed)
     return narrow_pixels(px, bits, signed) if narrow else px
 
 
