@@ -49,7 +49,18 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    engine="host")``, the device's share of an encode and of a decode
    (torch.profiler over one registry call) and the lossy PSNR
    go on lines of their own;
-6. prints the device bench rows, one JSON object of kernel results
+6. drives the other codec families through the same registry: exactly
+   the twelve UIDs; HTJ2K .201/.202 on 32 gray 512×512 12-bit frames,
+   codestreams byte-identical to ``make_registry(cuda:0, engine="host")``
+   with one fused forward stage launch a frame and one fused inverse
+   stage launch a decode chunk, .203 within ±1; the 14 OpenJPH golden
+   codestreams, one inverse stage launch each; RLE .5 on 32 gray 16-bit
+   and 8 RGB frames, the card's byte planes equal to numpy's (their device
+   time beside an x+1 of the same bytes on ``PLANES`` lines); .57, .70,
+   .80 and .81 on the clinical fixtures and the fo-dicom SV1 stream with
+   no launch and no card allocation; ``RATE`` and device-share lines of
+   .201 and .5; then the port bench's line (``BENCH``);
+7. prints the device bench rows, one JSON object of kernel results
    (each with its event, device and host ms; the DCT's with an x+1 copy
    of its input timed beside it; the lifting passes' with a
    ``long_route`` entry: its launches in the main path and the level-1
@@ -555,11 +566,11 @@ def timed(fn):
     return r, time.perf_counter() - t0
 
 
-def rates(calls: dict, n: int) -> dict:
+def rates(calls: dict, n: int, rounds: int = ROUNDS) -> dict:
     """Frames/s of each named call of n frames, the calls run in turns
-    ``ROUNDS`` times: median, slowest and fastest round."""
+    ``rounds`` times: median, slowest and fastest round."""
     secs = {k: [] for k in calls}
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         for k, fn in calls.items():
             secs[k].append(timed(fn)[1])
     return {k: {"median": n / statistics.median(v), "min": n / max(v),
@@ -634,6 +645,18 @@ def host_checked(calls: dict) -> dict:
         return run
     return {k: checked(fn) if k.startswith("host") else fn
             for k, fn in calls.items()}
+
+
+def device_share(label: str, call) -> None:
+    """One line of where a warm registry call spends its time: wall ms,
+    device ms and device operations (torch.profiler), the device's share
+    and the largest device operations."""
+    call()
+    wall = timed(call)[1]
+    dev_ms, top, ops = device_bench.device_ms(call, iters=1)
+    print(f"{label}: wall {wall * 1e3:.1f} ms, device {dev_ms:.3f} ms in "
+          f"{ops:.0f} device operations, device share "
+          f"{dev_ms / (wall * 1e3):.4f}; top kernels {json.dumps(top)}")
 
 
 def codec_phase(rng, dev, card: str) -> dict:
@@ -794,16 +817,302 @@ def codec_phase(rng, dev, card: str) -> dict:
                 src, gdc.MemoryPixelData(info=info, encapsulated=True))),
             ("decode", lambda: codec.decode(enc,
                                             gdc.MemoryPixelData(info=info)))):
-        call()
-        wall = timed(call)[1]
-        dev_ms, top, ops = device_bench.device_ms(call, iters=1)
-        print(f"registry {name} of [{B}, {H}, {W}]: wall "
-              f"{wall * 1e3:.1f} ms, device {dev_ms:.3f} ms in {ops:.0f} "
-              f"device operations, device share "
-              f"{dev_ms / (wall * 1e3):.4f}; top kernels {json.dumps(top)}")
+        device_share(f"registry {name} of [{B}, {H}, {W}]", call)
     for name, r in measured.items():
         print("RATE " + json.dumps({"path": name, "card": card, **r}))
     return launches
+
+
+# ---- the other codec families ---------------------------------------------
+
+U = gdc.uids
+PORT_UIDS = sorted([
+    U.RLE_LOSSLESS, U.JPEG_LOSSLESS_P14, U.JPEG_LOSSLESS_SV1,
+    U.JPEG_LS_LOSSLESS, U.JPEG_LS_NEAR_LOSSLESS, U.JPEG_2000_LOSSLESS,
+    U.JPEG_2000_LOSSY, U.JPEG_2000_MC_LOSSLESS, U.JPEG_2000_MC_LOSSY,
+    U.HTJ2K_LOSSLESS, U.HTJ2K_LOSSLESS_RPCL, U.HTJ2K])
+HOST_CODECS = (U.JPEG_LOSSLESS_P14, U.JPEG_LOSSLESS_SV1, U.JPEG_LS_LOSSLESS,
+               U.JPEG_LS_NEAR_LOSSLESS)
+FAMILY_ROUNDS = 3
+GOLDEN = "test-data/htj2k_interop"
+CLINICAL = "test-data/clinical_pixels.npz"
+SV1 = "test-data/us_fodicom_sv1.jpg"
+SV1_PIXEL_SHA = ("bae1813f165ae41351acbffb87ee982c"
+                 "e80ea942c1c88f5ee83b0824ab5e377a")
+
+
+def host_round_trip(host_registry, uid, frames, bits, rgb):
+    """Encode then decode through the host-engine registry, which must
+    launch no kernel. Returns (streams, decoded)."""
+    info, src = pixel_data(frames, bits, rgb)
+    codec = host_registry.get_codec(uid)
+    enc = gdc.MemoryPixelData(info=info, encapsulated=True)
+    dec = gdc.MemoryPixelData(info=info)
+    before = dict(_kernels.launch_counts)
+    codec.encode(src, enc)
+    codec.decode(enc, dec)
+    check(_kernels.launch_counts == before,
+          f"{uid}: the host engine launched a kernel")
+    dt = np.uint8 if rgb else np.dtype("<u2")
+    return ([enc.get_frame(i) for i in range(len(frames))],
+            np.stack([np.frombuffer(dec.get_frame(i), dt)
+                      for i in range(len(frames))]).reshape(frames.shape))
+
+
+def htj2k_phase(rng, dev, registry, host_registry) -> dict:
+    """.201 and .202: 32 gray 512² 12-bit frames through the card registry
+    and the host engine, codestreams byte-identical and decodes bit-exact;
+    one forward stage launch a frame on encode, one inverse stage launch a
+    decode chunk, no lifting pass, no DCT. .203: 8 frames at quality 85,
+    decodes within ±1 of the host engine's. Returns the .201 calls for
+    ``rates`` and the launches."""
+    frames = phantom(rng, B, 12)
+    launches, out_calls = {}, None
+    for uid in (U.HTJ2K_LOSSLESS, U.HTJ2K_LOSSLESS_RPCL):
+        streams, decoded, lc, calls, runs = registry_round_trip(
+            registry, host_registry, uid, frames, 12, False)
+        check(runs == {"pipeline.decode": (1, "device")},
+              f"{uid}: the decode pipeline did not run on the device {runs}")
+        dchunks = profiling.EVENTS["pipeline.decode"]["chunks"]
+        host_streams, host_dec = host_round_trip(host_registry, uid, frames,
+                                                 12, False)
+        check(streams == host_streams,
+              f"{uid}: card codestreams differ from the host engine's")
+        check(np.array_equal(decoded, frames)
+              and np.array_equal(host_dec, frames),
+              f"{uid}: a decode is not bit-exact")
+        enc, dec = lc["encode"], lc["decode"]
+        check(enc["j2k_fwd_stage"] == B and enc["dwt53_fwd_pass"] == 0,
+              f"{uid}: the encode did not run one j2k_fwd_stage launch a "
+              f"frame and no forward pass {enc}")
+        check(dec["j2k_inv_stage"] == dchunks and dec["dwt53_inv_pass"] == 0,
+              f"{uid}: the decode did not run one j2k_inv_stage launch a "
+              f"chunk ({dchunks}) and no inverse pass {dec}")
+        launches[uid] = lc
+        print(f"HTJ2K {uid} [{B}, {H}, {W}] 12-bit: codestreams == host "
+              f"engine, decodes bit-exact; j2k_fwd_stage launches per "
+              f"encode {enc['j2k_fwd_stage']} (one a frame), j2k_inv_stage "
+              f"per decode {dec['j2k_inv_stage']} ({dchunks} chunks of 8), "
+              f"lifting passes {enc['dwt53_fwd_pass'] + dec['dwt53_inv_pass']}"
+              f", DCT {enc['fdct8x8_quant'] + dec['fdct8x8_quant']}; "
+              f"{sum(len(s) for s in streams) / B:.0f} bytes/frame")
+        out_calls = out_calls or calls
+    frames = phantom(rng, RGB_FRAMES, 12)
+    params = gdc.Parameters(quality=85)
+    info, src = pixel_data(frames, 12, False)
+    got = []
+    for reg in (registry, host_registry):
+        enc = gdc.MemoryPixelData(info=info, encapsulated=True)
+        dec = gdc.MemoryPixelData(info=info)
+        _kernels.reset_launch_counts()
+        reg.get_codec(U.HTJ2K).encode(src, enc, params)
+        reg.get_codec(U.HTJ2K).decode(enc, dec)
+        got.append(([enc.get_frame(i) for i in range(RGB_FRAMES)],
+                    np.stack([np.frombuffer(dec.get_frame(i), "<u2")
+                              for i in range(RGB_FRAMES)]).astype(np.int64),
+                    dict(_kernels.launch_counts)))
+    (card_s, card_d, lc), (host_s, host_d, host_lc) = got
+    err = int(np.abs(card_d - host_d).max())
+    check(err <= 1, f"{U.HTJ2K}: decode differs from the host engine's by "
+          f"{err}")
+    check(lc["fdct8x8_quant"] == 0 and not any(host_lc.values()),
+          f"{U.HTJ2K}: launches {lc}, host engine {host_lc}")
+    print(f"HTJ2K {U.HTJ2K} [{RGB_FRAMES}, {H}, {W}] quality 85: max |card "
+          f"- host engine| {err}, codestreams equal "
+          f"{card_s == host_s}; launches {json.dumps(lc)}")
+    return {"calls": out_calls, "launches": launches}
+
+
+def golden_phase(registry) -> int:
+    """The OpenJPH golden codestreams decode through the card registry to
+    their input.raw, each by the scalar decode's one launch of the fused
+    inverse stage. Returns the inverse stage launches they took."""
+    with open(f"{GOLDEN}/manifest.json") as f:
+        fixtures = json.load(f)["fixtures"]
+    uid_of = {"htj2k_lossless": U.HTJ2K_LOSSLESS,
+              "htj2k_lossless_rpcl": U.HTJ2K_LOSSLESS_RPCL}
+    n = 0
+    _kernels.reset_launch_counts()
+    for fx in fixtures:
+        w, h, nc, ba = (fx["width"], fx["height"], fx["components"],
+                        fx["bitsAllocated"])
+        dt = np.uint8 if ba == 8 else np.dtype("<i2" if fx["signed"]
+                                               else "<u2")
+        with open(f"{GOLDEN}/{fx['inputRaw']}", "rb") as f:
+            raw = f.read()
+        info = gdc.FrameInfo(width=w, height=h, bits_allocated=ba,
+                             bits_stored=fx["bitsStored"],
+                             samples_per_pixel=nc,
+                             pixel_representation=int(fx["signed"]))
+        for key, cs in fx["codestreams"].items():
+            with open(f"{GOLDEN}/{cs['path']}", "rb") as f:
+                stream = f.read()
+            enc = gdc.MemoryPixelData(info=info, encapsulated=True)
+            enc.add_frame(stream)
+            dec = gdc.MemoryPixelData(info=info)
+            registry.get_codec(uid_of[key]).decode(enc, dec)
+            check(np.array_equal(np.frombuffer(dec.get_frame(0), dt),
+                                 np.frombuffer(raw, dt)),
+                  f"golden {fx['name']} {key} differs from its input.raw")
+            n += 1
+    check(n == 14, f"{n} golden codestreams, not 14")
+    inv = _kernels.launch_counts["j2k_inv_stage"]
+    check(inv == n and _kernels.launch_counts["dwt53_inv_pass"] == 0,
+          f"golden decodes: {inv} inverse stage launches for {n} streams")
+    print(f"OpenJPH golden codestreams: {n} decoded through the card "
+          f"registry == input.raw; launches "
+          f"{json.dumps(dict(_kernels.launch_counts))}")
+    return inv
+
+
+def planes_profile(dev, frames: np.ndarray, ba: int, spp: int,
+                   card: str) -> dict:
+    """The RLE byte planes on the card: split and merge of the stacked
+    frames against an x+1 over the same bytes, event and device ms."""
+    from go_dicom_codec_torch.ops.planes import (merge_byte_planes,
+                                                 split_byte_planes)
+    batch = torch.as_tensor(np.ascontiguousarray(frames).view(np.uint8)
+                            .reshape(len(frames), -1), device=dev)
+    planes = split_byte_planes(batch, ba, spp)
+    check(merge_byte_planes(planes, ba, spp).equal(batch),
+          "merge_byte_planes does not invert split_byte_planes")
+    line = {"bytes": batch.numel(), "frames": len(frames),
+            "bound_ms": 2 * batch.numel() / HBM_BYTES_PER_S * 1e3,
+            "gpu": card}
+    for name, fn in (("split", lambda: split_byte_planes(batch, ba, spp)),
+                     ("merge", lambda: merge_byte_planes(planes, ba, spp)),
+                     ("xplus1", lambda: batch + 1)):
+        t = timing(fn)
+        line[name] = {"event_ms": t["ms"], "device_ms": t["device_ms"],
+                      "host_ms": t["host_ms"]}
+    return line
+
+
+def rle_phase(rng, dev, card: str) -> dict:
+    """.5: 32 gray 512² 16-bit frames and 8 RGB 512² 8-bit frames through
+    ``engine="device"`` (the byte planes on the card) and ``"host"``
+    (numpy): streams and frames byte-identical; the planes' device time
+    beside an x+1 over the same bytes. Returns the gray calls for
+    ``rates``."""
+    device_reg = gdc.make_registry(dev, engine="device")
+    host_reg = gdc.make_registry(dev, engine="host")
+    gray_calls = None
+    for name, frames, bits, rgb, ba, spp in (
+            ("gray", phantom(rng, B, 16), 16, False, 2, 1),
+            ("rgb", np.stack([phantom(rng, RGB_FRAMES, 8) for _ in range(3)],
+                             axis=-1), 8, True, 1, 3)):
+        streams, decoded, lc, calls, _ = registry_round_trip(
+            device_reg, host_reg, U.RLE_LOSSLESS, frames, bits, rgb)
+        host_streams, host_dec = host_round_trip(host_reg, U.RLE_LOSSLESS,
+                                                 frames, bits, rgb)
+        check(streams == host_streams,
+              f"RLE {name}: device-plane streams differ from the host's")
+        check(np.array_equal(decoded, frames)
+              and np.array_equal(host_dec, frames),
+              f"RLE {name}: a decode is not bit-exact")
+        check(not any(lc["encode"].values()) and not any(
+            lc["decode"].values()), f"RLE {name}: a kernel launched {lc}")
+        prof = planes_profile(dev, frames.astype(np.uint8 if rgb else "<u2"),
+                              ba, spp, card)
+        print(f"RLE .5 {name} {list(frames.shape)}: device planes == host, "
+              f"streams and frames; "
+              f"{sum(len(s) for s in streams) / len(frames):.0f} "
+              f"bytes/frame")
+        print("PLANES " + json.dumps({"frames": name, **prof}))
+        gray_calls = gray_calls or calls
+    return gray_calls
+
+
+def host_codecs_phase(dev, registry) -> None:
+    """.57, .70, .80, .81 through the card registry: the clinical frames
+    round-trip (near-lossless within its NEAR of 2), the fo-dicom SV1
+    stream decodes to its pinned pixels, and no call launches a kernel or
+    allocates on the card."""
+    import gc
+    import hashlib
+
+    z = np.load(CLINICAL)
+    gc.collect()   # no earlier phase's garbage may be freed in between
+    torch.cuda.synchronize()
+    before = (dict(_kernels.launch_counts), torch.cuda.memory_allocated(dev))
+    for key in ("mr_s16", "xr_u8", "ct_u12"):
+        arr = z[key]
+        bits, signed = (int(v) for v in z[key + "_meta"])
+        h, w = arr.shape
+        info = gdc.FrameInfo(width=w, height=h,
+                             bits_allocated=arr.dtype.itemsize * 8,
+                             bits_stored=bits,
+                             pixel_representation=int(signed))
+        src = gdc.MemoryPixelData(info=info)
+        src.add_frame(np.ascontiguousarray(arr).tobytes())
+        for uid in HOST_CODECS:
+            codec = registry.get_codec(uid)
+            enc = gdc.MemoryPixelData(info=info, encapsulated=True)
+            codec.encode(src, enc)
+            dec = gdc.MemoryPixelData(info=info)
+            codec.decode(enc, dec)
+            got = np.frombuffer(dec.get_frame(0), arr.dtype).astype(np.int64)
+            err = int(np.abs(got - arr.reshape(-1)).max())
+            tol = 2 if uid == U.JPEG_LS_NEAR_LOSSLESS else 0
+            check(err <= tol, f"{uid} {key}: round trip off by {err}")
+    with open(SV1, "rb") as f:
+        stream = f.read()
+    info = gdc.FrameInfo(width=512, height=512, bits_allocated=16,
+                         bits_stored=12)
+    enc = gdc.MemoryPixelData(info=info, encapsulated=True)
+    enc.add_frame(stream)
+    dec = gdc.MemoryPixelData(info=info)
+    registry.get_codec(U.JPEG_LOSSLESS_SV1).decode(enc, dec)
+    check(hashlib.sha256(dec.get_frame(0)).hexdigest() == SV1_PIXEL_SHA,
+          "the fo-dicom SV1 stream does not decode to its pinned pixels")
+    gc.collect()
+    torch.cuda.synchronize()
+    after = (dict(_kernels.launch_counts), torch.cuda.memory_allocated(dev))
+    check(after == before, f"the host codecs touched the card: {before} → "
+          f"{after}")
+    print(f"host codecs {HOST_CODECS}: clinical mr_s16, xr_u8, ct_u12 round "
+          f"trips, SV1 golden sha256 pinned; no launch, card memory "
+          f"{after[1]} bytes before and after")
+
+
+def families_phase(rng, dev, card: str) -> dict:
+    """The codec families beyond J2K, through ``make_registry(cuda:0)``:
+    the registry's twelve UIDs, HTJ2K, the golden streams, RLE, the host
+    codecs, then the ``RATE`` lines of .201 and .5 (three rounds in
+    turns). Returns the HTJ2K launches."""
+    registry = gdc.make_registry(dev)
+    host_registry = gdc.make_registry(dev, engine="host")
+    check(registry.registered_transfer_syntaxes() == PORT_UIDS,
+          f"make_registry holds {registry.registered_transfer_syntaxes()}")
+    check(gdc.registry.get_global_registry().registered_transfer_syntaxes()
+          == [], "the port's global registry is not empty")
+    print(f"registry: {len(PORT_UIDS)} UIDs {PORT_UIDS}; global registry "
+          f"empty")
+    ht = htj2k_phase(rng, dev, registry, host_registry)
+    golden = golden_phase(registry)
+    rle_calls = rle_phase(rng, dev, card)
+    host_codecs_phase(dev, registry)
+    for path, calls in (("htj2k_201", ht["calls"]), ("rle_5", rle_calls)):
+        r = rates(host_checked(calls), B, FAMILY_ROUNDS)
+        print("RATE " + json.dumps({"path": path, "card": card, **r}))
+        for name in ("encode", "decode"):
+            device_share(f"{path} registry {name} of [{B}, {H}, {W}]",
+                         calls[f"registry_{name}"])
+    return {"htj2k": ht["launches"], "golden_inv_stage": golden}
+
+
+def run_port_bench(card: str) -> None:
+    """The port bench's ``main()`` once at its full size; its JSON line
+    goes out prefixed ``BENCH``."""
+    import contextlib
+    import io
+
+    from go_dicom_codec_torch.tools import bench
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        line = bench.main()
+    check(line["gpu"] == card, "the bench names another card")
+    print("BENCH " + json.dumps(line))
 
 
 def main() -> int:
@@ -857,9 +1166,12 @@ def main() -> int:
     print(f"native host library ready after "
           f"{time.perf_counter() - t_native:.2f} s")
     codec_phase(rng, dev, card)
+    families = families_phase(rng, dev, card)
 
     times = time_kernels(dev, rng, qt)
     long_times = time_long_route()
+    run_port_bench(card)
+    ht = families["htj2k"][U.HTJ2K_LOSSLESS]
     kernels = []
     for name, (route, source, replaces) in SOURCES.items():
         tk = times[name]
@@ -876,6 +1188,10 @@ def main() -> int:
         if name in long_times:
             kernels[-1]["long_route"] = {"launches": long_launches[name],
                                          **long_times[name]}
+        if name in ("j2k_fwd_stage", "j2k_inv_stage"):
+            kernels[-1]["htj2k_201_launches"] = {
+                "encode": ht["encode"][name], "decode": ht["decode"][name],
+                "frames": B}
     print(card)
     print(json.dumps({"kernels": kernels, "gpu": card}))
     print(json.dumps({"ok": True, "device": {

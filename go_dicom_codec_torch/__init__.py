@@ -1,9 +1,12 @@
 """PyTorch + CUDA port of the DICOM pixel-data codec framework.
 
 ``go_dicom_codec_tpu`` is the JAX reference; each module here mirrors the
-module of the same path there. The port covers the JPEG 2000 family
-(transfer syntaxes .90-.93): frames in, codestreams out, and back, with
-the transforms on an NVIDIA Hopper GPU and the entropy stages on the host.
+module of the same path there. The port covers twelve transfer syntaxes:
+frames in, codestreams out, and back. The JPEG 2000 family (.90-.93) and
+HTJ2K (.201-.203) run their transforms on an NVIDIA Hopper GPU and their
+entropy stages on the host; RLE (.5) moves its byte planes on the GPU and
+codes its runs on the host; lossless JPEG (.57, .70) and JPEG-LS (.80,
+.81) run on the host alone.
 
 Layout:
   - ``ops/``        plain-torch functions (the CPU lane and the kernels'
@@ -11,12 +14,14 @@ Layout:
   - ``csrc/``       the CUDA C++ kernels, built with ``nvcc`` at first use.
   - ``pipeline``    the device stages and the double-buffered multi-frame
                     encode and decode pipelines.
-  - ``codecs/``     the J2K codec core and its transfer-syntax adapters.
+  - ``codecs/``     the J2K codec core and the transfer-syntax adapters;
+                    the lossless JPEG and JPEG-LS codecs are copies.
   - ``codestream/``, ``entropy/``, ``t2/``, ``native/``, ``utils/``, and
     ``errors``, ``frames``, ``params``, ``uids``, ``registry``: the host
                     half, copied byte for byte from the reference (the
-                    native T1/T2 library is built with g++ at first use).
-  - ``tools/``      the device bench.
+                    native library of T1/T2, scans and PackBits is built
+                    with g++ at first use).
+  - ``tools/``      the port bench (``tools.bench``) and the device bench.
 
 Every kernel wrapper launches its kernel for a CUDA tensor and runs the
 plain version for a CPU tensor; any other device raises. Nothing picks a

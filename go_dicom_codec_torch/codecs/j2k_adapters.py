@@ -223,7 +223,7 @@ class J2KLosslessCodec(Codec):
                     params=params, engine=self.engine, device=self.device):
                 new_pixel_data.add_frame(stream)
             return
-        enc = J2KEncoder(params, device=self.device)
+        enc = J2KEncoder(params, device=self.device, engine=self.engine)
         for i in range(nframes):
             frame = old_pixel_data.get_frame(i)
             if info.samples_per_pixel == 3 and info.planar_configuration == 1:
@@ -258,7 +258,8 @@ class J2KLosslessCodec(Codec):
                 pass  # heterogeneous/multi-tile: scalar path below
         for i in range(nframes):
             pix, w, h, c, depth, signed = decode_to_pixels(
-                old_pixel_data.get_frame(i), device=self.device)
+                old_pixel_data.get_frame(i), device=self.device,
+                engine=self.engine)
             if (info.bytes_allocated == 2 and depth <= 8):
                 # widen to the container the DICOM dataset expects
                 dt = np.int8 if signed else np.uint8

@@ -227,13 +227,31 @@ def band_mb(qcd: j2k.QcdInfo, r: int, band: int, num_levels: int) -> int:
     return qcd.guard_bits + 8
 
 
+def _native_53(device: Optional[torch.device], engine: str) -> bool:
+    """Whether one tile's reversible 5/3 (forward or inverse) takes the
+    native host lane (when it is built), as the reference's per-frame fast
+    paths always do: without a device, on the "host" engine, and on "auto"
+    where the device's measured transfer policy does not prefer it (always
+    on the CPU). The "device" engine, and "auto" on a GPU the policy
+    prefers, run the device stage instead: one launch of a fused stage a
+    tile, bit-identical."""
+    if device is None or engine == "host":
+        return True
+    from ..pipeline import prefer_batched_device
+    return engine == "auto" and not prefer_batched_device(device)
+
+
 class J2KEncoder:
     def __init__(self, params: Optional[J2KEncodeParams] = None, *,
-                 device: Optional[torch.device]) -> None:
+                 device: Optional[torch.device],
+                 engine: str = "auto") -> None:
         self.params = params or J2KEncodeParams()
         # where the device stage runs; None for an encoder that only takes
         # precomputed tiles
         self.device = device
+        # the reversible tile transform's engine (_native_53)
+        from ..pipeline import check_engine
+        self.engine = check_engine(engine)
 
     def encode(self, pixels, width: int, height: int, components: int,
                bit_depth: int, signed: bool = False,
@@ -587,10 +605,12 @@ class J2KEncoder:
         # single-tile host fast path: integer DC shift + RCT + native 5/3
         # mirror (bit-parity with the torch path, tests/test_native.py) —
         # avoids per-op device dispatch when encoding one frame at a time;
-        # the batched pipeline path keeps the whole-array device stage
+        # the batched pipeline path keeps the whole-array device stage.
+        # On a GPU the engine decides (_native_53)
         coeffs = None
         if (cod.transform == 1 and not self.params.mct_bindings
-                and self.params.mct_matrix is None):
+                and self.params.mct_matrix is None
+                and _native_53(self.device, self.engine)):
             from .. import native as _nat
             if _nat.get_lib() is not None:
                 comps_np = np.moveaxis(tile, -1, 0).astype(np.int32)
@@ -1408,10 +1428,14 @@ class J2KDecoder:
 
     def __init__(self, resilient: bool = False,
                  block_decoder_factory=None, reduce: int = 0,
-                 window=None, *, device: Optional[torch.device]) -> None:
+                 window=None, *, device: Optional[torch.device],
+                 engine: str = "auto") -> None:
         # where the inverse transforms run; None for a decoder that stops
         # before them (the packed host stages)
         self.device = device
+        # the reversible inverse transform's engine (_native_53)
+        from ..pipeline import check_engine
+        self.engine = check_engine(engine)
         self.resilient = resilient
         self.block_decoder_factory = block_decoder_factory
         # reduced-resolution decode (OpenJPEG -r analogue, beyond the
@@ -2022,9 +2046,11 @@ class J2KDecoder:
             and cc.num_levels == cod0.num_levels for cc in cods)
         if homogeneous and cod.transform == 1:
             from .. import native as _nat
-            if _nat.get_lib() is not None and not mct_bindings_inv:
+            if (_nat.get_lib() is not None and not mct_bindings_inv
+                    and _native_53(self.device, self.engine)):
                 # host fast path: native inverse 5/3 (bit-parity mirror)
-                # + integer inverse RCT, no per-op device dispatch
+                # + integer inverse RCT, no per-op device dispatch; on a
+                # GPU the engine decides (_native_53)
                 rec = np.stack([
                     _nat.dwt53_inv_native(p, eff_levels, etx0, ety0)
                     for p in packed])
@@ -2146,12 +2172,12 @@ def pack_decoded_pixels(arr: np.ndarray, depth: int, signed: bool,
 
 
 def decode_to_pixels(data: bytes, reduce: int = 0, window=None, *,
-                     device: torch.device):
+                     device: torch.device, engine: str = "auto"):
     """Decode a codestream → (pixel bytes, width, height, comps, depth,
     signed). reduce=R decodes at 1/2^R resolution; window=(x0,y0,x1,y1)
     decodes only that reference-grid region (J2KDecoder notes)."""
     arr, siz, cod = J2KDecoder(reduce=reduce, window=window,
-                               device=device).decode(data)
+                               device=device, engine=engine).decode(data)
     depth, signed, _, _ = siz.components[0]
     h, w, c = arr.shape
     return (pack_decoded_pixels(arr, depth, signed), w, h, c,

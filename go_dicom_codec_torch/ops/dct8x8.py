@@ -54,10 +54,11 @@ def scale_quant_table(base: np.ndarray, quality: int,
     return np.clip(t, 1, max_val).astype(np.int32)
 
 
-def tables_from_numpy(d, qtable, device="cpu"):
+def tables_from_numpy(d, qtable, device: torch.device):
     """The DCT basis [8, 8] and a quant table (64 values) as float32
-    tensors on ``device``: the codec's constant state, from the numpy
-    constants of either package (or tensors)."""
+    tensors on ``device`` (required: nothing picks a device): the codec's
+    constant state, from the numpy constants of either package (or
+    tensors)."""
     dt = torch.as_tensor(d, dtype=torch.float32, device=device)
     qt = torch.as_tensor(qtable, dtype=torch.float32, device=device)
     return dt.reshape(8, 8).contiguous(), qt.reshape(64).contiguous()

@@ -86,7 +86,11 @@ def test_constants_match_reference():
         np.testing.assert_array_equal(
             port.scale_quant_table(port.LUMA_QUANT, quality, 255),
             jc.scale_quant_table(jc.LUMA_QUANT, quality, 255))
-    d, q = port.tables_from_numpy(ref._D_np, jc.LUMA_QUANT)
+    with pytest.raises(TypeError):   # no default device
+        port.tables_from_numpy(ref._D_np, jc.LUMA_QUANT)
+    d, q = port.tables_from_numpy(ref._D_np, jc.LUMA_QUANT,
+                                  torch.device("cpu"))
+    assert d.device.type == "cpu"
     assert d.dtype == q.dtype == torch.float32
     np.testing.assert_array_equal(d.numpy(), ref._D_np)
     np.testing.assert_array_equal(q.numpy(), jc.LUMA_QUANT.reshape(64))
@@ -94,7 +98,8 @@ def test_constants_match_reference():
 
 def test_kernel_wrapper_rejects_cpu_tensors():
     x = torch.zeros((1, 8, 8), dtype=torch.int32)
-    d, q = port.tables_from_numpy(port._D_np, port.LUMA_QUANT)
+    d, q = port.tables_from_numpy(port._D_np, port.LUMA_QUANT,
+                                  torch.device("cpu"))
     with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
         _kernels.fdct8x8_quant(x, torch.empty_like(x), d.reshape(64), q, 128)
     with pytest.raises(ValueError, match="no lane"):
@@ -235,7 +240,8 @@ def test_kernel_wrapper_checks_alignment(monkeypatch):
     assert not _kernels.aligned16(odd)
     monkeypatch.setattr(_kernels, "_require", lambda *a: None)
     monkeypatch.setattr(_kernels, "_load", lambda: pytest.fail("launched"))
-    d, q = port.tables_from_numpy(port._D_np, port.LUMA_QUANT)
+    d, q = port.tables_from_numpy(port._D_np, port.LUMA_QUANT,
+                                  torch.device("cpu"))
     with pytest.raises(_kernels.KernelLaunchError, match="16-byte"):
         _kernels.fdct8x8_quant(odd, torch.empty_like(odd), d.reshape(64), q,
                                128)

@@ -20,13 +20,17 @@ PORT = ROOT / "go_dicom_codec_torch"
 VERBATIM = (
     "errors.py", "frames.py", "params.py", "uids.py", "registry.py",
     "codestream/__init__.py", "codestream/j2k.py",
+    "codestream/jpeg_markers.py",
     "entropy/__init__.py", "entropy/mq.py", "entropy/ebcot.py",
-    "entropy/htcleanup.py", "entropy/htrefine.py",
+    "entropy/htcleanup.py", "entropy/htrefine.py", "entropy/golomb.py",
+    "entropy/huffman.py", "entropy/rlepack.py",
     "t2/__init__.py", "t2/bitio.py", "t2/tagtree.py", "t2/packets.py",
     "t2/pcrd.py",
     "codecs/ht_tables.py", "codecs/j2k_geometry.py", "codecs/j2k_quant.py",
     "codecs/j2k_roi.py", "codecs/mct_builder.py",
-    "utils/__init__.py",
+    "codecs/jpeg_lossless.py", "codecs/jpegls.py",
+    "ops/lossless_predict.py",
+    "utils/__init__.py", "utils/npbits.py",
     "native/__init__.py", "native/ebcot_native.cpp",
 )
 
@@ -34,9 +38,10 @@ VERBATIM = (
 # profiling module) a copy less its jax trace hook
 PORTED = (
     "__init__.py", "pipeline.py", "codecs/__init__.py",
-    "codecs/jpeg2000.py", "codecs/j2k_adapters.py", "utils/profiling.py",
+    "codecs/jpeg2000.py", "codecs/j2k_adapters.py", "codecs/htj2k.py",
+    "codecs/rle.py", "utils/profiling.py",
     "ops/__init__.py", "ops/blockstats.py", "ops/dct8x8.py",
-    "ops/dwt53.py", "ops/dwt97.py", "ops/mct.py",
+    "ops/dwt53.py", "ops/dwt97.py", "ops/mct.py", "ops/planes.py",
     "tools/__init__.py", "tools/device_bench.py",
 )
 

@@ -5,8 +5,9 @@ imports jax through the package's __init__. So the port, its device bench
 and chip_smoke.py must import neither, even transitively. A subprocess
 blocks ``jax`` before anything is imported and runs the CPU slice once:
 the device stages (the encode stages, the decode stage and the inverse
-stage under it), the device bench, and encode and decode through the
-port's codec registry.
+stage under it), the device bench, encode and decode through the port's
+codec registry (.90, .91, .80, .70, .201 and .5 on both engines) and the
+port bench at a tiny size.
 """
 
 import subprocess
@@ -71,6 +72,31 @@ for uid in (gdc.uids.JPEG_2000_LOSSLESS, gdc.uids.JPEG_2000_LOSSY):
         got = np.frombuffer(dec.get_frame(i), "<u2").astype(np.int64)
         tol = 0 if uid == gdc.uids.JPEG_2000_LOSSLESS else 64
         assert np.abs(got - f.reshape(-1)).max() <= tol, uid
+
+# the codecs of the other families, on both RLE engines
+for uid, engine in ((gdc.uids.JPEG_LS_LOSSLESS, "auto"),
+                    (gdc.uids.JPEG_LOSSLESS_SV1, "auto"),
+                    (gdc.uids.HTJ2K_LOSSLESS, "auto"),
+                    (gdc.uids.RLE_LOSSLESS, "device"),
+                    (gdc.uids.RLE_LOSSLESS, "host")):
+    src = gdc.MemoryPixelData(info=info)
+    for f in frames:
+        src.add_frame(f.astype("<u2").tobytes())
+    codec = gdc.make_registry(torch.device("cpu"), engine).get_codec(uid)
+    enc = gdc.MemoryPixelData(info=info, encapsulated=True)
+    codec.encode(src, enc)
+    dec = gdc.MemoryPixelData(info=info)
+    codec.decode(enc, dec)
+    assert [dec.get_frame(i) for i in range(3)] == \
+        [src.get_frame(i) for i in range(3)], uid
+
+# the port bench at a tiny size
+from go_dicom_codec_torch.tools import bench
+line = bench.main(batch=2, height=64, width=64, iters=2,
+                  device=torch.device("cpu"))
+assert line["metric"] == "j2k_dwt53_quant_stats_encode_throughput"
+fn, args = bench.entry(torch.device("cpu"))
+assert fn(args[0][:1, :64, :64])[0].shape == (1, 64, 64)
 
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None and (
     m == "jax" or m.startswith(("jax.", "jaxlib", "go_dicom_codec_tpu"))))
