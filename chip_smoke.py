@@ -20,7 +20,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    [8, 3, 512, 512] with the RCT, on int16 and int32 input, in all three
    epilogues; the fused forward and inverse 5/3, the forward and inverse
    lifting passes bit-exact at [32, 512, 512] × 5 levels and on small odd
-   cases at every origin, both stages' epilogues on those too;
+   cases at every origin, both stages' epilogues on those too; the islow
+   forward and inverse kernels bit-exact (``compare_islow``) at
+   [32, 512, 512] and ragged shapes, 8-bit and 12-bit profiles, qualities
+   1, 50, 90 and 100, 16-bit samples under the 12-bit profile (the int32
+   wraparound) and ±32768 coefficients with a table of 65535s;
 4. drives the main path at full size: 32 gray 512×512 12-bit frames and 8
    RGB 512×512 8-bit frames through encode transform → narrow fetch →
    decode stage, each bit-exact back to its input; frames with a side of
@@ -50,7 +54,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    (torch.profiler over one registry call) and the lossy PSNR
    go on lines of their own;
 6. drives the other codec families through the same registry: exactly
-   the twelve UIDs; HTJ2K .201/.202 on 32 gray 512×512 12-bit frames,
+   the fourteen UIDs; HTJ2K .201/.202 on 32 gray 512×512 12-bit frames,
    codestreams byte-identical to ``make_registry(cuda:0, engine="host")``
    with one fused forward stage launch a frame and one fused inverse
    stage launch a decode chunk, .203 within ±1; the 14 OpenJPH golden
@@ -60,9 +64,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    .80 and .81 on the clinical fixtures and the fo-dicom SV1 stream with
    no launch and no card allocation; ``RATE`` and device-share lines of
    .201 and .5; then the port bench's line (``BENCH``);
-7. prints the device bench rows, one JSON object of kernel results
+7. drives JPEG baseline and extended through the same registry
+   (``jpeg_phase``): .50 on 32 gray 512² 8-bit frames and .51 on 32 gray
+   12-bit frames (the pipelined encode: one ``jpeg_fdct_islow`` launch an
+   encode chunk; one ``jpeg_idct_islow`` launch a decoded frame), .50 on
+   8 RGB frames (the per-frame native encode; three inverse launches a
+   frame), each byte-identical to ``make_registry(cuda:0,
+   engine="host")`` in streams and pixels, with no float DCT launch;
+   ``RATE`` and device-share lines of .50 and .51;
+8. prints the device bench rows, one JSON object of kernel results
    (each with its event, device and host ms; the DCT's with an x+1 copy
-   of its input timed beside it; the lifting passes' with a
+   of its input timed beside it; the islow kernels' launches from the
+   JPEG phase, with the forward of 12-bit samples and the inverse of one
+   frame timed beside them; the lifting passes' with a
    ``long_route`` entry: its launches in the main path and the level-1
    pass of [2, 16, 65535] and [2, 65535, 16] timed against its plain
    version and bound), and as its last line
@@ -85,7 +99,9 @@ from go_dicom_codec_torch import _kernels, native
 from go_dicom_codec_torch import pipeline as P
 from go_dicom_codec_torch.codecs import j2k_adapters
 from go_dicom_codec_torch.ops.convert import round_to_int32_sat
-from go_dicom_codec_torch.ops.dct8x8 import (LUMA_QUANT, _basis, quantize,
+from go_dicom_codec_torch.ops.dct8x8 import (LUMA_QUANT, _basis,
+                                            decode_zigzag_to_plane,
+                                            encode_plane_to_zigzag, quantize,
                                             scale_quant_table, to_blocks)
 from go_dicom_codec_torch.ops.dwt53 import (_level_passes, _level_windows,
                                             fwd53_multilevel_,
@@ -99,6 +115,8 @@ from go_dicom_codec_torch.ops.fdct8x8_quant import (encode_plane_blocks,
 from go_dicom_codec_torch.ops.j2k_fwd_stage import fwd_stage, fwd_stage_plain
 from go_dicom_codec_torch.ops.j2k_inv_stage import (inv53_passes_, inv_stage,
                                                     inv_stage_plain)
+from go_dicom_codec_torch.ops.jpeg_islow import (fdct_islow, idct_islow,
+                                                 plane_dtype)
 from go_dicom_codec_torch.ops.mct import dc_level_shift
 from go_dicom_codec_torch.tools import device_bench
 from go_dicom_codec_torch.utils import profiling
@@ -119,9 +137,16 @@ SOURCES = {
                       "go_dicom_codec_tpu/pipeline.py:43"),
     "j2k_inv_stage": ("cuda", "go_dicom_codec_torch/csrc/j2k_inv_stage.cu",
                       "go_dicom_codec_tpu/pipeline.py:435"),
+    "jpeg_fdct_islow": ("cuda", "go_dicom_codec_torch/csrc/jpeg_islow.cu",
+                        "go_dicom_codec_tpu/ops/dct8x8.py:177"),
+    "jpeg_idct_islow": ("cuda", "go_dicom_codec_torch/csrc/jpeg_islow.cu",
+                        "go_dicom_codec_tpu/ops/dct8x8.py:197"),
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12      # H100 SXM outside the tensor cores
+# int32 outside the tensor cores: 64 lanes an SM a clock, a multiply-add
+# counted as two operations as the float32 rate counts an FMA (half of it)
+INT32_OPS_PER_S = 33.5e12
 INT32_MAX, INT32_MIN = 2147483647, -2147483648
 # shapes of the DCT kernel's ragged edges: W of five blocks (a tile and a
 # masked part), H = 8, B = 1, and B × H/8 odd and not a multiple of the
@@ -131,6 +156,11 @@ DCT_RAGGED = ((1, 8, 40), (3, 8, 40), (1, 64, 40), (5, 24, 136), (7, 8, 8))
 # ways, NaN, ±inf, the largest float32 below 2^31, 2^31, -2^31, ties
 SATURATE = (3e9, -3e9, float("nan"), float("inf"), float("-inf"),
             2147483520.0, 2.0 ** 31, -2.0 ** 31, 2.5, -2.5, 0.5)
+# the islow kernels' checks: shapes of ragged edges (beside [B, H, W]), the
+# profiles (bits, level shift, sample dtype) and the qualities
+ISLOW_RAGGED = ((3, 37, 45), (1, 1, 1), (2, 8, 4095), (1, 4095, 8))
+ISLOW_PROFILES = ((8, 128, np.uint8), (12, 2048, np.uint16))
+ISLOW_QUALITIES = (1, 50, 90, 100)
 # the longest lines the fused stage holds, then lines that take the
 # lifting passes' long-line route
 LONG_SHAPES = ((1, 8, 58111), (1, 58111, 8), (1, 8, 60001), (1, 60001, 8),
@@ -365,6 +395,78 @@ def compare_dwt_all(rng, dev) -> dict:
     return {k: max(e[k] for e in errs) for k in errs[0]}
 
 
+def compare_islow(dev) -> dict:
+    """The islow kernels against their plain versions on the card, bit for
+    bit: the forward at [B, H, W] and ISLOW_RAGGED in both profiles and at
+    every quality (uint8 or uint16 samples, int32 once a profile), the
+    inverse on each forward's output into the narrowest dtype and into
+    int32; 16-bit samples under the 12-bit profile (coefficients past
+    int16, products past int32), where both also equal the plain version
+    on the CPU; the inverse of ±32768 coefficients with a table of 65535s
+    in both profiles, also against the CPU. Returns each kernel's max
+    |d|."""
+    rng = np.random.default_rng(SEED + 2)
+    errs = {"jpeg_fdct_islow": 0, "jpeg_idct_islow": 0}
+    cases = 0
+
+    def against_plain(name, got, want, cpu=None):
+        errs[name] = max(errs[name], max_abs_diff(got, want))
+        if cpu is not None:
+            check(want.cpu().equal(cpu), f"{name}: the plain version on "
+                  f"the card differs from the CPU's")
+
+    def inverse(zz, q, level, max_val, on_cpu):
+        want = decode_zigzag_to_plane(zz, q, level, max_val)
+        cpu = (decode_zigzag_to_plane(zz.cpu(), q, level, max_val)
+               if on_cpu else None)
+        for dt in (plane_dtype(max_val), torch.int32):
+            got = idct_islow(zz, q, level, max_val, dt)
+            check(got.dtype == dt, f"jpeg_idct_islow gives {got.dtype}")
+            against_plain("jpeg_idct_islow", got, want, cpu)
+
+    def both(x, q, level, max_val, on_cpu=False):
+        nonlocal cases
+        want = encode_plane_to_zigzag(x, q, level)
+        cpu = encode_plane_to_zigzag(x.cpu(), q, level) if on_cpu else None
+        against_plain("jpeg_fdct_islow", fdct_islow(x, q, level), want, cpu)
+        inverse(want, q, level, max_val, on_cpu)
+        cases += 1
+        return want
+
+    for bits, level, dtype in ISLOW_PROFILES:
+        for quality in ISLOW_QUALITIES:
+            q = scale_quant_table(LUMA_QUANT, quality, 255)
+            for shape in ((B, H, W),) + ISLOW_RAGGED:
+                x = torch.as_tensor(rng.integers(0, 1 << bits, shape)
+                                    .astype(dtype), device=dev)
+                both(x, q, level, (1 << bits) - 1)
+        both(x.to(torch.int32), q, level, (1 << bits) - 1)
+    # 16-bit samples under the 12-bit profile, the extreme blocks planted
+    x16 = rng.integers(0, 1 << 16, (4, 64, 64)).astype(np.uint16)
+    x16[0, :8, :8] = np.where(np.arange(8) % 2, 65535, 0)[None]
+    x16[1, :8, 8:16] = 65535
+    for quality in ISLOW_QUALITIES:
+        q = scale_quant_table(LUMA_QUANT, quality, 255)
+        zz = both(torch.as_tensor(x16, device=dev), q, 2048, 65535, True)
+        check(quality != 100 or int(zz.abs().max()) > 32767,
+              "the wrap case did not pass int16")
+    # hostile coefficients with a 16-bit table
+    zz = torch.as_tensor(rng.choice(np.array([-32768, 32767, 0, 1, -1],
+                                             np.int32), (2, 16, 16, 64)),
+                         device=dev)
+    q = np.full(64, 65535, np.int32)
+    for bits, level, _ in ISLOW_PROFILES:
+        inverse(zz, q, level, (1 << bits) - 1, True)
+        cases += 1
+    check(not any(errs.values()), f"islow kernels differ from their plain "
+          f"versions: {errs}")
+    print(f"islow kernels == plain on {cases} cases: [{B}, {H}, {W}] and "
+          f"{list(ISLOW_RAGGED)}, 8- and 12-bit profiles, qualities "
+          f"{list(ISLOW_QUALITIES)}, 16-bit samples at level 2048, ±32768 "
+          f"coefficients × 65535")
+    return errs
+
+
 def long_lines(rng, dev) -> None:
     """Frames with a side of 58111 samples (the fused stages, at Hopper's
     whole shared memory a block: one launch each way) and over it (the
@@ -437,11 +539,13 @@ def round_trip_rgb(rng, dev) -> None:
     print(f"rgb round trip [{RGB_FRAMES}, 3, {H}, {W}] bit-exact")
 
 
-def bound(nbytes: float, nops: float) -> dict:
+def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S
+          ) -> dict:
     """The least time the card could take: {"bound_ms", "bound_by": "bytes"
-    or "operations"}, the bytes over HBM's rate against the integer and
-    float operations over the float32 rate outside the tensor cores."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+    or "operations"}, the bytes over HBM's rate against the operations
+    over ``ops_per_s`` (by default the float32 rate outside the tensor
+    cores, for stages that mix integer and float operations)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     by = "bytes" if t_bytes >= t_ops else "operations"
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": by}
 
@@ -467,7 +571,12 @@ def time_kernels(dev, rng, qt) -> dict:
     pipeline's narrow decode stage of [B, 1, H, W] int16 coefficients (2
     bytes in and 2 out a sample; ~4 operations a sample and pass, 4 in the
     epilogue). The DCT: [B, H, W] int32 in and out, 35 operations a
-    sample, beside an x+1 copy of the same tensor."""
+    sample, beside an x+1 copy of the same tensor. The islow kernels at
+    the 8-bit profile: the forward of [B, H, W] uint8 samples to int32
+    coefficients (about 40 int32 operations a sample, a divide among
+    them), the inverse of those back to uint8 (about 32); beside them the
+    forward of 12-bit uint16 samples (the .51 encode) and the inverse of
+    one frame (one decode launch)."""
     buf = torch.as_tensor(rng.integers(-2048, 2048, (B, H, W),
                                        dtype=np.int32), device=dev)
     window = sum(B * h * w * len(_level_passes(h, w, True, True))
@@ -508,6 +617,33 @@ def time_kernels(dev, rng, qt) -> dict:
             lambda: fdct8x8_quant_plain(x, qt, DCT_SHIFT))[0],
         **bound(8 * B * H * W, 35 * B * H * W),
         "xplus1_ms": copy["ms"], "xplus1_device_ms": copy["device_ms"]}
+    n, q = B * H * W, scale_quant_table(LUMA_QUANT, 90, 255)
+    x8 = torch.as_tensor(rng.integers(0, 256, (B, H, W)).astype(np.uint8),
+                         device=dev)
+    x16 = torch.as_tensor(rng.integers(0, 4096, (B, H, W)).astype(np.uint16),
+                          device=dev)
+    zz = fdct_islow(x8, q, 128)
+    steps = {
+        "jpeg_fdct_islow": (
+            lambda: fdct_islow(x8, q, 128),
+            lambda: encode_plane_to_zigzag(x8, q, 128), 5 * n, 40 * n),
+        "jpeg_idct_islow": (
+            lambda: idct_islow(zz, q, 128, 255, torch.uint8),
+            lambda: decode_zigzag_to_plane(zz, q, 128, 255).to(torch.uint8),
+            5 * n, 32 * n),
+        "uint16_12bit": (
+            lambda: fdct_islow(x16, q, 2048),
+            lambda: encode_plane_to_zigzag(x16, q, 2048), 6 * n, 40 * n),
+        "per_frame": (
+            lambda: idct_islow(zz[:1], q, 128, 255, torch.uint8),
+            lambda: decode_zigzag_to_plane(zz[:1], q, 128, 255).to(
+                torch.uint8), 5 * n // B, 32 * n // B)}
+    for name, (kernel, plain, nbytes, nops) in steps.items():
+        t[name] = {**timing(kernel),
+                   "plain_ms": device_bench.time_ms(plain)[0],
+                   **bound(nbytes, nops, INT32_OPS_PER_S)}
+    t["jpeg_fdct_islow"]["uint16_12bit"] = t.pop("uint16_12bit")
+    t["jpeg_idct_islow"]["per_frame"] = t.pop("per_frame")
     return t
 
 
@@ -547,13 +683,18 @@ def phantom(rng, n: int, bits: int, shape=(H, W)) -> np.ndarray:
     return out
 
 
+def sample_dtype(bits: int) -> np.dtype:
+    """The stored sample type of ``bits``-bit frames."""
+    return np.dtype(np.uint8 if bits <= 8 else "<u2")
+
+
 def pixel_data(frames: np.ndarray, bits: int, rgb: bool):
     info = gdc.FrameInfo(width=frames.shape[2], height=frames.shape[1],
-                         bits_allocated=8 if rgb else 16, bits_stored=bits,
-                         samples_per_pixel=3 if rgb else 1)
+                         bits_allocated=8 * sample_dtype(bits).itemsize,
+                         bits_stored=bits, samples_per_pixel=3 if rgb else 1)
     src = gdc.MemoryPixelData(info=info)
     for f in frames:
-        src.add_frame(f.astype(np.uint8 if rgb else "<u2").tobytes())
+        src.add_frame(f.astype(sample_dtype(bits)).tobytes())
     return info, src
 
 
@@ -609,8 +750,7 @@ def registry_round_trip(registry, host_registry, uid, frames, bits, rgb):
     runs = pipeline_runs()
     n = len(frames)
     streams = [enc.get_frame(i) for i in range(n)]
-    dt = np.uint8 if rgb else np.dtype("<u2")
-    decoded = np.stack([np.frombuffer(dec.get_frame(i), dt)
+    decoded = np.stack([np.frombuffer(dec.get_frame(i), sample_dtype(bits))
                         for i in range(n)]).reshape(frames.shape)
     calls = {}
     for name, reg in (("registry", registry), ("host", host_registry)):
@@ -827,7 +967,8 @@ def codec_phase(rng, dev, card: str) -> dict:
 
 U = gdc.uids
 PORT_UIDS = sorted([
-    U.RLE_LOSSLESS, U.JPEG_LOSSLESS_P14, U.JPEG_LOSSLESS_SV1,
+    U.RLE_LOSSLESS, U.JPEG_BASELINE_8BIT, U.JPEG_EXTENDED_12BIT,
+    U.JPEG_LOSSLESS_P14, U.JPEG_LOSSLESS_SV1,
     U.JPEG_LS_LOSSLESS, U.JPEG_LS_NEAR_LOSSLESS, U.JPEG_2000_LOSSLESS,
     U.JPEG_2000_LOSSY, U.JPEG_2000_MC_LOSSLESS, U.JPEG_2000_MC_LOSSY,
     U.HTJ2K_LOSSLESS, U.HTJ2K_LOSSLESS_RPCL, U.HTJ2K])
@@ -853,9 +994,8 @@ def host_round_trip(host_registry, uid, frames, bits, rgb):
     codec.decode(enc, dec)
     check(_kernels.launch_counts == before,
           f"{uid}: the host engine launched a kernel")
-    dt = np.uint8 if rgb else np.dtype("<u2")
     return ([enc.get_frame(i) for i in range(len(frames))],
-            np.stack([np.frombuffer(dec.get_frame(i), dt)
+            np.stack([np.frombuffer(dec.get_frame(i), sample_dtype(bits))
                       for i in range(len(frames))]).reshape(frames.shape))
 
 
@@ -1077,7 +1217,7 @@ def host_codecs_phase(dev, registry) -> None:
 
 def families_phase(rng, dev, card: str) -> dict:
     """The codec families beyond J2K, through ``make_registry(cuda:0)``:
-    the registry's twelve UIDs, HTJ2K, the golden streams, RLE, the host
+    the registry's fourteen UIDs, HTJ2K, the golden streams, RLE, the host
     codecs, then the ``RATE`` lines of .201 and .5 (three rounds in
     turns). Returns the HTJ2K launches."""
     registry = gdc.make_registry(dev)
@@ -1099,6 +1239,66 @@ def families_phase(rng, dev, card: str) -> dict:
             device_share(f"{path} registry {name} of [{B}, {H}, {W}]",
                          calls[f"registry_{name}"])
     return {"htj2k": ht["launches"], "golden_inv_stage": golden}
+
+
+def jpeg_phase(rng, dev, card: str) -> dict:
+    """.50 and .51 through ``make_registry(cuda:0)`` against the host
+    engine: 32 gray 512² frames at 8 bits (.50) and 12 bits (.51, CT-like)
+    take the pipelined encode, one ``jpeg_fdct_islow`` launch an encode
+    chunk and its ``pipeline.encode`` event on the device engine, and one
+    ``jpeg_idct_islow`` launch a frame on decode; 8 RGB frames (.50) the
+    per-frame native encode and three inverse launches a frame. Streams
+    byte-identical, decodes bit-identical, no float DCT, then the ``RATE``
+    (three rounds in turns) and device-share lines. Returns the launches
+    of the registry calls, each counted from 0 just before its call."""
+    registry = gdc.make_registry(dev)
+    host_registry = gdc.make_registry(dev, engine="host")
+    launches = {"jpeg_fdct_islow": 0, "jpeg_idct_islow": 0}
+    cases = (("gray_50", U.JPEG_BASELINE_8BIT, phantom(rng, B, 8), 8, False),
+             ("rgb_50", U.JPEG_BASELINE_8BIT,
+              np.stack([phantom(rng, RGB_FRAMES, 8) for _ in range(3)],
+                       axis=-1), 8, True),
+             ("gray_51", U.JPEG_EXTENDED_12BIT, phantom(rng, B, 12), 12,
+              False))
+    for name, uid, frames, bits, rgb in cases:
+        n = len(frames)
+        streams, decoded, lc, calls, runs = registry_round_trip(
+            registry, host_registry, uid, frames, bits, rgb)
+        host_streams, host_dec = host_round_trip(host_registry, uid, frames,
+                                                 bits, rgb)
+        check(streams == host_streams,
+              f"{name}: card streams differ from the host engine's")
+        check(np.array_equal(decoded, host_dec),
+              f"{name}: the card decode differs from the host engine's")
+        enc, dec = lc["encode"], lc["decode"]
+        if rgb:
+            want_runs, chunks = {}, 0
+        else:
+            want_runs = {"pipeline.encode": (1, "device")}
+            chunks = profiling.EVENTS["pipeline.encode"]["chunks"]
+        check(runs == want_runs, f"{name}: pipeline runs {runs}")
+        check(enc["jpeg_fdct_islow"] == chunks
+              and dec["jpeg_idct_islow"] == n * (3 if rgb else 1)
+              and enc["jpeg_idct_islow"] == dec["jpeg_fdct_islow"] == 0,
+              f"{name}: launches {lc} ({chunks} encode chunks, {n} frames)")
+        for k in launches:
+            launches[k] += enc[k] + dec[k]
+        err = int(np.abs(decoded.astype(np.int64) - frames).max())
+        print(f"JPEG {uid} {name} {list(frames.shape)}: streams == host "
+              f"engine, decode == host engine (max |decode - source| "
+              f"{err}); jpeg_fdct_islow per encode {enc['jpeg_fdct_islow']} "
+              f"({chunks} chunks), jpeg_idct_islow per decode "
+              f"{dec['jpeg_idct_islow']}, DCT "
+              f"{enc['fdct8x8_quant'] + dec['fdct8x8_quant']}; "
+              f"{sum(len(s) for s in streams) / n:.0f} bytes/frame")
+        if rgb:
+            continue
+        r = rates(host_checked(calls), n, FAMILY_ROUNDS)
+        print("RATE " + json.dumps({"path": name, "card": card, **r}))
+        for call in ("encode", "decode"):
+            device_share(f"{name} registry {call} of {list(frames.shape)}",
+                         calls[f"registry_{call}"])
+    return launches
 
 
 def run_port_bench(card: str) -> None:
@@ -1143,6 +1343,7 @@ def main() -> int:
                                 compare_stage(x.to(torch.uint16)))
     errs["j2k_inv_stage"] = max(errs["j2k_inv_stage"], compare_inv_stage(
         fwd_stage_plain(x, 2048, LEVELS)))
+    errs.update(compare_islow(dev))
     torch.cuda.synchronize()
 
     _kernels.reset_launch_counts()
@@ -1167,6 +1368,7 @@ def main() -> int:
           f"{time.perf_counter() - t_native:.2f} s")
     codec_phase(rng, dev, card)
     families = families_phase(rng, dev, card)
+    launches.update(jpeg_phase(rng, dev, card))
 
     times = time_kernels(dev, rng, qt)
     long_times = time_long_route()
@@ -1182,9 +1384,10 @@ def main() -> int:
                         "host_ms": tk["host_ms"], "plain_ms": tk["plain_ms"],
                         "bound_ms": tk["bound_ms"],
                         "bound_by": tk["bound_by"], "library_ms": None})
-        if "xplus1_ms" in tk:
-            kernels[-1].update(xplus1_ms=tk["xplus1_ms"],
-                               xplus1_device_ms=tk["xplus1_device_ms"])
+        for extra in ("xplus1_ms", "xplus1_device_ms", "uint16_12bit",
+                      "per_frame"):
+            if extra in tk:
+                kernels[-1][extra] = tk[extra]
         if name in long_times:
             kernels[-1]["long_route"] = {"launches": long_launches[name],
                                          **long_times[name]}

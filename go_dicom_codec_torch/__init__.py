@@ -1,12 +1,14 @@
 """PyTorch + CUDA port of the DICOM pixel-data codec framework.
 
 ``go_dicom_codec_tpu`` is the JAX reference; each module here mirrors the
-module of the same path there. The port covers twelve transfer syntaxes:
-frames in, codestreams out, and back. The JPEG 2000 family (.90-.93) and
-HTJ2K (.201-.203) run their transforms on an NVIDIA Hopper GPU and their
-entropy stages on the host; RLE (.5) moves its byte planes on the GPU and
-codes its runs on the host; lossless JPEG (.57, .70) and JPEG-LS (.80,
-.81) run on the host alone.
+module of the same path there. The port covers all fourteen transfer
+syntaxes of the reference: frames in, codestreams out, and back. The JPEG
+2000 family (.90-.93) and HTJ2K (.201-.203) run their transforms on an
+NVIDIA Hopper GPU and their entropy stages on the host; JPEG baseline and
+extended (.50, .51) run the integer islow DCT on the GPU and Huffman
+coding on the host; RLE (.5) moves its byte planes on the GPU and codes its
+runs on the host; lossless JPEG (.57, .70) and JPEG-LS (.80, .81) run on
+the host alone.
 
 Layout:
   - ``ops/``        plain-torch functions (the CPU lane and the kernels'

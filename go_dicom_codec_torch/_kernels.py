@@ -44,7 +44,8 @@ SMEM_MAX_BYTES = 232448
 
 launch_counts = {"fdct8x8_quant": 0, "dwt53_fwd_pass": 0,
                  "dwt53_inv_pass": 0, "j2k_fwd_stage": 0,
-                 "j2k_inv_stage": 0}
+                 "j2k_inv_stage": 0, "jpeg_fdct_islow": 0,
+                 "jpeg_idct_islow": 0}
 long_route_counts = {"dwt53_fwd_pass": 0, "dwt53_inv_pass": 0}
 
 _lib = None
@@ -130,9 +131,12 @@ def _load():
                                        p, p, p]
     lib.gdct_j2k_inv_stage.argtypes = [p, i, p, p, i, i, i, i, p, i, i, i, i,
                                        i, i, i, i, i, i, i, p]
+    lib.gdct_jpeg_fdct_islow.argtypes = [p, i, p, p, ll, i, i, i, p]
+    lib.gdct_jpeg_idct_islow.argtypes = [p, p, i, p, ll, i, i, i, i, p]
     for fn in (lib.gdct_dwt53_fwd_pass, lib.gdct_dwt53_inv_pass,
                lib.gdct_dwt53_long_pass, lib.gdct_fdct8x8_quant,
-               lib.gdct_j2k_fwd_stage, lib.gdct_j2k_inv_stage):
+               lib.gdct_j2k_fwd_stage, lib.gdct_j2k_inv_stage,
+               lib.gdct_jpeg_fdct_islow, lib.gdct_jpeg_idct_islow):
         fn.restype = ctypes.c_int
     lib.gdct_error_string.argtypes = [ctypes.c_int]
     lib.gdct_error_string.restype = ctypes.c_char_p
@@ -449,3 +453,88 @@ def fdct8x8_quant(x: torch.Tensor, out: torch.Tensor, d: torch.Tensor,
                                      w, float(level_shift), _stream(x))
     launch_counts["fdct8x8_quant"] += 1
     _check(lib, err, "fdct8x8_quant")
+
+
+# sample dtypes of the islow kernels, with their code in csrc/jpeg_islow.cu
+JPEG_DTYPES = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
+JPEG_MAX = {dtype: torch.iinfo(dtype).max for dtype in JPEG_DTYPES}
+
+
+def _jpeg_table(qtable: torch.Tensor, name: str) -> None:
+    _require(qtable, torch.int32, f"{name} qtable")
+    if qtable.numel() != 64:
+        raise KernelLaunchError(f"{name}: qtable needs 64 entries, got "
+                                f"{qtable.numel()}")
+
+
+def jpeg_fdct_islow(x: torch.Tensor, out: torch.Tensor,
+                    qtable: torch.Tensor, level_shift: int) -> None:
+    """Launch the forward islow stage once: samples ``x`` [P, H, W] (a
+    dtype of ``JPEG_DTYPES``) → ``x - level_shift`` edge-replicated to whole
+    8×8 blocks → islow DCT → quantized by ``qtable`` (int32 [64], raster
+    order, each entry in 1..65535: the caller checks the values, which lie
+    on the device here) → the int32 ``out`` [P, ceil(H/8), ceil(W/8), 64]
+    in zigzag order. ``level_shift`` >= 1024 takes the 12-bit profile."""
+    if x.dtype not in JPEG_DTYPES:
+        raise KernelLaunchError(f"jpeg_fdct_islow: no route for {x.dtype}")
+    _require(x, x.dtype, "jpeg_fdct_islow x")
+    _require(out, torch.int32, "jpeg_fdct_islow out")
+    _jpeg_table(qtable, "jpeg_fdct_islow")
+    if x.dim() != 3 or out.dim() != 4:
+        raise KernelLaunchError(f"jpeg_fdct_islow: bad shapes "
+                                f"{tuple(x.shape)} → {tuple(out.shape)}")
+    p, h, w = x.shape
+    if tuple(out.shape) != (p, -(-h // 8), -(-w // 8), 64):
+        raise KernelLaunchError(f"jpeg_fdct_islow: out needs "
+                                f"{(p, -(-h // 8), -(-w // 8), 64)}, got "
+                                f"{tuple(out.shape)}")
+    if x.numel() == 0:
+        return
+    lib = _load()
+    with torch.cuda.device(x.device):
+        err = lib.gdct_jpeg_fdct_islow(x.data_ptr(), JPEG_DTYPES[x.dtype],
+                                       out.data_ptr(), qtable.data_ptr(), p,
+                                       h, w, _int32(level_shift), _stream(x))
+    launch_counts["jpeg_fdct_islow"] += 1
+    _check(lib, err, "jpeg_fdct_islow")
+
+
+def jpeg_idct_islow(zz: torch.Tensor, out: torch.Tensor,
+                    qtable: torch.Tensor, level_shift: int,
+                    max_val: int) -> None:
+    """Launch the inverse islow stage once: int32 zigzag coefficients
+    ``zz`` [P, nby, nbx, 64] → dequantized by ``qtable`` (int32 [64], raster
+    order) → islow IDCT → + ``level_shift`` → clamped to [0, ``max_val``] in
+    ``out`` [P, nby * 8, nbx * 8] (a dtype of ``JPEG_DTYPES`` that holds
+    ``max_val``; it must start on a 32-byte boundary, as a fresh tensor
+    does). ``level_shift`` >= 1024 takes the 12-bit profile."""
+    if out.dtype not in JPEG_DTYPES:
+        raise KernelLaunchError(f"jpeg_idct_islow: no route for {out.dtype}")
+    _require(zz, torch.int32, "jpeg_idct_islow zz")
+    _require(out, out.dtype, "jpeg_idct_islow out")
+    _jpeg_table(qtable, "jpeg_idct_islow")
+    if not 0 <= max_val <= JPEG_MAX[out.dtype]:
+        raise KernelLaunchError(f"jpeg_idct_islow: max_val {max_val} does "
+                                f"not fit {out.dtype}")
+    if out.data_ptr() % 32:
+        raise KernelLaunchError("jpeg_idct_islow: out must start on a "
+                                "32-byte boundary")
+    if zz.dim() != 4 or zz.shape[-1] != 64 or out.dim() != 3:
+        raise KernelLaunchError(f"jpeg_idct_islow: bad shapes "
+                                f"{tuple(zz.shape)} → {tuple(out.shape)}")
+    p, nby, nbx, _ = zz.shape
+    if tuple(out.shape) != (p, nby * 8, nbx * 8):
+        raise KernelLaunchError(f"jpeg_idct_islow: out needs "
+                                f"{(p, nby * 8, nbx * 8)}, got "
+                                f"{tuple(out.shape)}")
+    if zz.numel() == 0:
+        return
+    lib = _load()
+    with torch.cuda.device(zz.device):
+        err = lib.gdct_jpeg_idct_islow(zz.data_ptr(), out.data_ptr(),
+                                       JPEG_DTYPES[out.dtype],
+                                       qtable.data_ptr(), p, nby, nbx,
+                                       _int32(level_shift), int(max_val),
+                                       _stream(zz))
+    launch_counts["jpeg_idct_islow"] += 1
+    _check(lib, err, "jpeg_idct_islow")

@@ -1,7 +1,6 @@
-"""JPEG 2000 multi-frame encode and decode pipelines and their device
-stages.
+"""Multi-frame encode and decode pipelines and their device stages.
 
-Port of the J2K half of ``go_dicom_codec_tpu/pipeline.py``:
+Port of ``go_dicom_codec_tpu/pipeline.py``:
 
 - the device stages: the encode transform (DC shift → RCT for RGB →
   multilevel 5/3 → per-codeblock stats), the pipelines' encode stage with
@@ -14,7 +13,10 @@ Port of the J2K half of ``go_dicom_codec_tpu/pipeline.py``:
 - the measured transfer policy that picks the transform engine;
 - the double-buffered ``encode_frames_pipelined`` and
   ``decode_frames_pipelined``: the device transforms chunk k+1 while the
-  host entropy-codes chunk k (``_Lane`` holds the CUDA side of that).
+  host entropy-codes chunk k (``_Lane`` holds the CUDA side of that);
+- the JPEG baseline/extended ``encode_frames_pipelined_jpeg`` on the same
+  lane: one launch of the islow forward kernel (ops/jpeg_islow.py) a
+  chunk while the host Huffman-codes the chunk before.
 
 The reference's ``device="auto"|"device"|"host"`` argument chooses an
 engine, not a device: here it is ``engine=``, and ``device`` is the
@@ -669,3 +671,73 @@ def decode_frames_pipelined(streams, chunk: int = 8,
         (bits, signed) = global_meta[0][4]
         return frames, (bits, signed)
     return frames
+
+
+def encode_frames_pipelined_jpeg(frames, quality: int = 90,
+                                 precision: int = 8, chunk: int = 8, *,
+                                 device: torch.device,
+                                 engine: str = "auto") -> List[bytes]:
+    """Double-buffered JPEG baseline/extended multi-frame encode.
+
+    The device runs DCT + quant + zigzag for chunk k+1 (one launch of the
+    islow forward kernel on a GPU) while the host Huffman-codes chunk k —
+    the same host↔device overlap as the J2K pipeline, on the same
+    ``engine`` choice ("host": the native DCT a frame). Grayscale frames
+    [F, H, W]; returns a list of JPEG byte streams, byte-identical to the
+    per-frame encoder on every engine (the integer islow DCT is the one
+    transform everywhere). Frames go up in their own dtype (uint8, uint16;
+    other dtypes as int32, the reference's host cast) and are widened on
+    the device. A call that returns logs a ``pipeline.encode`` event
+    (utils.profiling) naming its engine.
+    """
+    from .codecs import jpeg_common as jc
+    from .codecs.jpeg_baseline import encode_from_zigzag
+    from .codestream import jpeg_markers as mk
+    from .ops.dct8x8 import encode_plane_to_zigzag_np
+    from .ops.jpeg_islow import fdct_islow
+
+    frames = np.asarray(frames)
+    f, h, w = frames.shape
+    if f == 0:
+        return []
+    qtable = jc.scale_quant_table(jc.LUMA_QUANT, quality, 255)
+    level = 1 << (precision - 1)
+    sof = mk.SOF0 if precision <= 8 else mk.SOF1
+    if frames.dtype not in (np.uint8, np.uint16, np.int32):
+        frames = frames.astype(np.int32)
+
+    use_host = _use_host(engine, device)
+
+    def host_stage(group: np.ndarray) -> np.ndarray:
+        from .native import jpg_fdct_quant_native
+
+        out = []
+        for frame in group:
+            zz = jpg_fdct_quant_native(frame, qtable, level)
+            out.append(zz if zz is not None
+                       else encode_plane_to_zigzag_np(frame, qtable, level))
+        return np.stack(out)
+
+    def device_stage(x: torch.Tensor) -> torch.Tensor:
+        return fdct_islow(x, qtable, level)
+
+    chunks = [frames[i : i + chunk] for i in range(0, f, chunk)]
+    if not use_host:
+        lane = _Lane(device)
+        pending = lane.submit(device_stage, chunks[0])
+    out = []
+    for ci in range(len(chunks)):
+        if use_host:
+            zz = host_stage(chunks[ci])
+        else:
+            nxt = (lane.submit(device_stage, chunks[ci + 1])
+                   if ci + 1 < len(chunks) else None)
+            zz = pending.result()[0]  # waits for chunk ci's copies
+            pending = nxt
+        for k in range(zz.shape[0]):
+            out.append(encode_from_zigzag(
+                [zz[k].reshape(-1, 64)], [qtable], [0], w, h, 1,
+                precision=precision, sof_marker=sof,
+                write_jfif=precision > 8))
+    _log_call("pipeline.encode", use_host, f, len(chunks))
+    return out

@@ -1,4 +1,5 @@
-"""Device bench of the port: the J2K lossless transform and the fused DCT.
+"""Device bench of the port: the J2K lossless transform, the fused DCT and
+the JPEG codecs' islow DCT stages.
 
 Counterpart of part of ``go_dicom_codec_tpu/tools/device_bench.py`` and
 of ``bench.py:47-98``. Rows:
@@ -14,6 +15,11 @@ of ``bench.py:47-98``. Rows:
     coefficients and 64×64 code-block stats;
   - ``dct8x8_quant_pallas``: the fused 8×8 DCT + quant kernel, the port of
     the Pallas kernel;
+  - ``dct8x8_quant_zigzag``: the JPEG codecs' forward stage, 12-bit uint16
+    samples → islow DCT + quant + zigzag, int32 coefficients (the .51
+    pipelined encode's chunk);
+  - ``idct8x8_dequant``: its inverse, int32 zigzag coefficients → dequant +
+    islow IDCT + shift + clamp, uint16 samples (the .51 decode);
   - ``xplus1_ceiling``: ``x + 1``, the memory-bound ceiling of this shape.
 
 Each row runs in the kernel lane (the hand-written kernels: one launch of
@@ -21,7 +27,9 @@ the fused forward stage for every forward 5/3, of the fused inverse stage
 for every inverse) and the plain lane (the same step in plain torch),
 except the ceiling, which is plain torch only; the two stage rows also run
 the per-pass lane (torch widen and shift, two lifting-pass launches a
-level, torch epilogue: what lines too long for shared memory take). Inputs are device-resident 12-bit samples from
+level, torch epilogue: what lines too long for shared memory take); the
+two islow rows run one launch of their kernel of csrc/jpeg_islow.cu in the
+kernel lane. Inputs are device-resident 12-bit samples from
 ``numpy.random.default_rng(seed)``. A run is ``iters`` calls back to back
 between two CUDA events; a row reports the median over ``RUNS`` runs
 after one warm-up run, as ms per call and Mpx/s, and beside it the host
@@ -36,8 +44,9 @@ operations per call, its largest kernels and the device's idle share,
 ``STAGE_SMALL_BATCH`` (the encode pipeline's chunk); the narrow decode
 stage (int16 coefficients → uint16 pixels: the fused inverse stage, the
 per-pass lane and plain torch) of gray 12-bit and RGB 8-bit frames at the
-batch and at ``DECODE_SMALL_BATCH`` (the decode pipeline's chunk); then
-the inverse stage's head budgets (``head_profile``: none, 64² and 128²
+batch and at ``DECODE_SMALL_BATCH`` (the decode pipeline's chunk); the two
+islow rows with their bound (``jpeg_profile``); then the inverse stage's
+head budgets (``head_profile``: none, 64² and 128²
 samples at both batches, ``HEAD|``); then the same for each single lifting
 pass of the
 5-level transform (``iters`` launches of the one pass back to back); then
@@ -78,7 +87,9 @@ from ..ops.dwt53 import (_along_cols, _fwd_level_kernel_, _level_passes,
                          fwd53_1d, fwd53_multilevel_,
                          fwd53_multilevel_plain_, inv53_1d,
                          inv53_multilevel_, inv53_multilevel_plain_)
+from ..ops.dct8x8 import decode_zigzag_to_plane, encode_plane_to_zigzag
 from ..ops.fdct8x8_quant import fdct8x8_quant, fdct8x8_quant_plain
+from ..ops.jpeg_islow import fdct_islow, idct_islow
 from ..ops import dwt53
 from ..ops import j2k_inv_stage as istage
 from ..ops.j2k_fwd_stage import (_epilogue, _shifted, fwd_stage,
@@ -97,6 +108,7 @@ LANES = {"kernel": (fwd53_multilevel_, inv53_multilevel_, fdct8x8_quant),
                    fdct8x8_quant_plain)}
 # frames with a side too long for shared memory: along rows, along columns
 LONG_SHAPES = ((2, 16, 65535), (2, 65535, 16))
+JPEG_LEVEL = 2048  # the islow rows' 12-bit profile, as the reference's
 
 
 def card_info() -> str:
@@ -247,6 +259,26 @@ def _decode_steps(x: torch.Tensor) -> dict:
     return rows
 
 
+def _jpeg_steps(x: torch.Tensor) -> dict:
+    """The two islow rows: {row: ({lane: step}, bound ms)}. Bound: uint16
+    samples and int32 coefficients, each read or written once."""
+    x16 = x.to(torch.uint16)
+    q = scale_quant_table(LUMA_QUANT, 90, 255)
+    zz = fdct_islow(x16, q, JPEG_LEVEL)
+    bound = x.numel() * 6 / HBM_BYTES_PER_S * 1e3
+    return {
+        "dct8x8_quant_zigzag": ({
+            "kernel": lambda: fdct_islow(x16, q, JPEG_LEVEL),
+            "plain": lambda: encode_plane_to_zigzag(x16, q, JPEG_LEVEL)},
+            bound),
+        "idct8x8_dequant": ({
+            "kernel": lambda: idct_islow(zz, q, JPEG_LEVEL, 4095,
+                                         torch.uint16),
+            "plain": lambda: decode_zigzag_to_plane(
+                zz, q, JPEG_LEVEL, 4095).to(torch.uint16)},
+            bound)}
+
+
 def _steps(x: torch.Tensor, qt: torch.Tensor) -> dict:
     """The bench.py rows in each lane: {row: {lane: step}}."""
     q = dwt53_stats(x)[0]
@@ -274,7 +306,8 @@ def run_bench(batch: int = 32, height: int = 512, width: int = 512,
                      "batch": batch, "size": f"{width}x{height}",
                      "runs": RUNS, "iters": iters, "gpu": card})
 
-    stages = {name: lanes for name, (lanes, _) in _stage_steps(x).items()}
+    stages = {name: lanes for name, (lanes, _) in
+              {**_stage_steps(x), **_jpeg_steps(x)}.items()}
     for name, lanes in {**_steps(x, qt), **stages}.items():
         for lane, fn in lanes.items():  # the lanes of a row run back to back
             row(name, lane, fn)
@@ -313,6 +346,17 @@ def decode_profile(batch: int, height: int = 512, width: int = 512,
     return [_line(fn, iters, card, step=f"{name}/{lane}", batch=batch,
                   bound_ms=bound)
             for name, (lanes, bound) in _decode_steps(x).items()
+            for lane, fn in lanes.items()]
+
+
+def jpeg_profile(batch: int, height: int = 512, width: int = 512,
+                 iters: int = 10, seed: int = 0, card: str = "") -> list:
+    """Profile lines of the two islow rows in both lanes, with bounds."""
+    x, _ = _inputs(batch, height, width, seed)
+    card = card or card_info()
+    return [_line(fn, iters, card, step=f"{name}/{lane}", batch=batch,
+                  bound_ms=bound)
+            for name, (lanes, bound) in _jpeg_steps(x).items()
             for lane, fn in lanes.items()]
 
 
@@ -375,6 +419,7 @@ def run_profile(batch: int = 32, height: int = 512, width: int = 512,
              for name, fn in fns.items()]
     steps += stage_profile(batch, height, width, iters, seed, card)
     steps += decode_profile(batch, height, width, iters, seed, card)
+    steps += jpeg_profile(batch, height, width, iters, seed, card)
     passes = []
     for level, (w, h, _, _) in enumerate(
             _level_windows(width, height, LEVELS, 0, 0), 1):

@@ -6,7 +6,7 @@ native library), instantiated into ``make_registry``'s registry. Streams
 and decoded frames must be byte-identical to the reference codec classes'
 on the same seeded frames: every predictor of .57, NEAR 0, 2 and 5 of .81,
 8/12/16 bits, gray and RGB. Also the fo-dicom SV1 fixture's pinned decode,
-the twelve UIDs of ``make_registry``, and the port's global registry
+the fourteen UIDs of ``make_registry``, and the port's global registry
 staying empty.
 """
 
@@ -27,7 +27,8 @@ BASE = os.path.join(os.path.dirname(__file__), "..", "test-data")
 SV1_PIXEL_SHA = ("bae1813f165ae41351acbffb87ee982c"
                  "e80ea942c1c88f5ee83b0824ab5e377a")
 PORT_UIDS = sorted([
-    ref.uids.RLE_LOSSLESS, ref.uids.JPEG_LOSSLESS_P14,
+    ref.uids.RLE_LOSSLESS, ref.uids.JPEG_BASELINE_8BIT,
+    ref.uids.JPEG_EXTENDED_12BIT, ref.uids.JPEG_LOSSLESS_P14,
     ref.uids.JPEG_LOSSLESS_SV1, ref.uids.JPEG_LS_LOSSLESS,
     ref.uids.JPEG_LS_NEAR_LOSSLESS, ref.uids.JPEG_2000_LOSSLESS,
     ref.uids.JPEG_2000_LOSSY, ref.uids.JPEG_2000_MC_LOSSLESS,

@@ -29,6 +29,7 @@ VERBATIM = (
     "codecs/ht_tables.py", "codecs/j2k_geometry.py", "codecs/j2k_quant.py",
     "codecs/j2k_roi.py", "codecs/mct_builder.py",
     "codecs/jpeg_lossless.py", "codecs/jpegls.py",
+    "codecs/jpeg_progressive.py",
     "ops/lossless_predict.py",
     "utils/__init__.py", "utils/npbits.py",
     "native/__init__.py", "native/ebcot_native.cpp",
@@ -39,9 +40,11 @@ VERBATIM = (
 PORTED = (
     "__init__.py", "pipeline.py", "codecs/__init__.py",
     "codecs/jpeg2000.py", "codecs/j2k_adapters.py", "codecs/htj2k.py",
-    "codecs/rle.py", "utils/profiling.py",
+    "codecs/rle.py", "codecs/jpeg_common.py", "codecs/jpeg_baseline.py",
+    "codecs/jpeg_extended.py", "utils/profiling.py",
     "ops/__init__.py", "ops/blockstats.py", "ops/dct8x8.py",
-    "ops/dwt53.py", "ops/dwt97.py", "ops/mct.py", "ops/planes.py",
+    "ops/dct_int.py", "ops/dwt53.py", "ops/dwt97.py", "ops/mct.py",
+    "ops/planes.py",
     "tools/__init__.py", "tools/device_bench.py",
 )
 

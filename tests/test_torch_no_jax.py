@@ -6,8 +6,9 @@ and chip_smoke.py must import neither, even transitively. A subprocess
 blocks ``jax`` before anything is imported and runs the CPU slice once:
 the device stages (the encode stages, the decode stage and the inverse
 stage under it), the device bench, encode and decode through the port's
-codec registry (.90, .91, .80, .70, .201 and .5 on both engines) and the
-port bench at a tiny size.
+codec registry (.90, .91, .80, .70, .201 and .5 on both engines, .50 and
+.51 on the device engine, with the islow stages under them) and the port
+bench at a tiny size.
 """
 
 import subprocess
@@ -89,6 +90,32 @@ for uid, engine in ((gdc.uids.JPEG_LS_LOSSLESS, "auto"),
     codec.decode(enc, dec)
     assert [dec.get_frame(i) for i in range(3)] == \
         [src.get_frame(i) for i in range(3)], uid
+
+# JPEG baseline and extended: the islow stages, and encode and decode on
+# the device engine (the pipelined encode and the islow inverse)
+from go_dicom_codec_torch.codecs import jpeg_progressive  # noqa: F401
+from go_dicom_codec_torch.ops.jpeg_islow import fdct_islow, idct_islow
+zz = fdct_islow(gray.to(torch.uint16), q, 2048)
+assert zz.shape == (2, 5, 7, 64)
+assert idct_islow(zz, q, 2048, 4095).shape == (2, 40, 56)
+for uid, bits in ((gdc.uids.JPEG_BASELINE_8BIT, 8),
+                  (gdc.uids.JPEG_EXTENDED_12BIT, 12)):
+    info = gdc.FrameInfo(width=40, height=24,
+                         bits_allocated=8 if bits == 8 else 16,
+                         bits_stored=bits)
+    dt = np.uint8 if bits == 8 else np.dtype("<u2")
+    src = gdc.MemoryPixelData(info=info)
+    for f in frames:
+        src.add_frame((f >> (12 - bits)).astype(dt).tobytes())
+    codec = gdc.make_registry(torch.device("cpu"), "device").get_codec(uid)
+    enc = gdc.MemoryPixelData(info=info, encapsulated=True)
+    codec.encode(src, enc)
+    dec = gdc.MemoryPixelData(info=info)
+    codec.decode(enc, dec)
+    for i in range(3):
+        got = np.frombuffer(dec.get_frame(i), dt).astype(np.int64)
+        want = np.frombuffer(src.get_frame(i), dt).astype(np.int64)
+        assert np.abs(got - want).max() <= (1 << bits) // 16, uid
 
 # the port bench at a tiny size
 from go_dicom_codec_torch.tools import bench
