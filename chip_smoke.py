@@ -72,14 +72,35 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    frame), each byte-identical to ``make_registry(cuda:0,
    engine="host")`` in streams and pixels, with no float DCT launch;
    ``RATE`` and device-share lines of .50 and .51;
-8. prints the device bench rows, one JSON object of kernel results
+8. drives the multi-device scale-out (``go_dicom_codec_torch/parallel``,
+   ``mesh_phase``) on a mesh of every visible card and on two shards of
+   cuda:0 (tiles of 2): 32 gray 512² 12-bit frames, 5 levels, lossless,
+   whose ``encode_frames_sharded`` streams equal
+   ``encode_frames_pipelined`` on cuda:0 and the host engine's and whose
+   ``decode_frames_sharded`` is bit-exact, with exactly one fused forward
+   stage launch per tile and shard on encode, one fused inverse stage
+   launch per tile and shard on decode and no lifting pass or DCT; 8 RGB
+   512² 8-bit frames in four 256² tiles equal to the scalar
+   ``J2KEncoder`` on cuda:0, decoding bit-exact with the RCT fused into
+   the inverse stage; 8 gray 12-bit frames lossy at quality 85 whose
+   streams equal the scalar encoder's device lane on cuda:0 and decode
+   within ±1 of the scalar decoder's; a COC batch (component 1 at 4
+   levels) through the heterogeneous decode, equal to ``J2KDecoder`` a
+   frame; ``dryrun_multichip([cuda:0] * 4)`` (and on every card where
+   there are two or more) and ``python -m
+   go_dicom_codec_torch.tools.multiproc_dryrun --device cuda`` (its ``MP|``
+   line names the backend); ``MESH`` lines of encode and decode frames/s
+   (three rounds in turns with the pipelines on cuda:0) and of the device
+   time of one sharded call;
+9. prints the device bench rows, one JSON object of kernel results
    (each with its event, device and host ms; the DCT's with an x+1 copy
    of its input timed beside it; the islow kernels' launches from the
    JPEG phase, with the forward of 12-bit samples and the inverse of one
    frame timed beside them; the lifting passes' with a
    ``long_route`` entry: its launches in the main path and the level-1
    pass of [2, 16, 65535] and [2, 65535, 16] timed against its plain
-   version and bound), and as its last line
+   version and bound; the fused stages' ``mesh_launches``), and as its
+   last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits non-zero and prints no ok line. Imports no JAX.
@@ -98,6 +119,7 @@ import go_dicom_codec_torch as gdc
 from go_dicom_codec_torch import _kernels, native
 from go_dicom_codec_torch import pipeline as P
 from go_dicom_codec_torch.codecs import j2k_adapters
+from go_dicom_codec_torch.codecs.jpeg2000 import J2KEncoder
 from go_dicom_codec_torch.ops.convert import round_to_int32_sat
 from go_dicom_codec_torch.ops.dct8x8 import (LUMA_QUANT, _basis,
                                             decode_zigzag_to_plane,
@@ -1301,6 +1323,284 @@ def jpeg_phase(rng, dev, card: str) -> dict:
     return launches
 
 
+# ---- the mesh phase ------------------------------------------------------
+
+MESH_ROUNDS = 3
+MESH_STAGES = ("j2k_fwd_stage", "j2k_inv_stage")
+
+
+def counted(fn):
+    """fn's result and the launches it made: every count set to 0 just
+    before the call and read just after it."""
+    _kernels.reset_launch_counts()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, dict(_kernels.launch_counts)
+
+
+def check_stage_launches(label: str, lc: dict, fwd: int, inv: int) -> None:
+    """The fused stages launched ``fwd`` and ``inv`` times and nothing
+    else of the J2K path did: no lifting pass, no DCT."""
+    check(lc["j2k_fwd_stage"] == fwd and lc["j2k_inv_stage"] == inv
+          and lc["dwt53_fwd_pass"] == lc["dwt53_inv_pass"] == 0
+          and lc["fdct8x8_quant"] == 0,
+          f"{label}: launches {lc}, want {fwd} forward, {inv} inverse")
+
+
+def blocks(n: int, positions: int) -> int:
+    """The non-empty blocks of n frames cut into equal contiguous blocks of
+    ceil(n / positions), as the reference splits its padded batch (1, 2 and
+    4 for 32 frames on 1, 2 and 4 positions; 8 for 8 frames on 8 or more):
+    counted here, not taken from the mesh code under test."""
+    size = -(-n // positions)
+    return -(-n // size)
+
+
+def remux_coc(frame_a: np.ndarray, frame_b: np.ndarray, levels_b: int,
+              dev) -> bytes:
+    """One 2-component codestream from two gray frames, component 1 at its
+    own level count by COC (and QCC): the packets of two single-component
+    streams interleaved by resolution (LRCP, one layer, one precinct)."""
+    from go_dicom_codec_torch.codecs.j2k_geometry import build_tile_geometry
+    from go_dicom_codec_torch.codecs.jpeg2000 import (J2KEncodeParams,
+                                                      J2KEncoder, band_mb)
+    from go_dicom_codec_torch.codestream import j2k
+    from go_dicom_codec_torch.t2.packets import (BlockState, PrecinctState,
+                                                 decode_packet,
+                                                 progression_order)
+
+    def split(cs):
+        cod, qcd = cs.cod, cs.qcd
+        body, rect = cs.tiles[0].data, cs.siz.tile_rect(0, 0)
+        res_list = build_tile_geometry(*rect, cod.num_levels, cod.cb_width,
+                                       cod.cb_height, cod.precinct_exp)
+        states = {(res.r, p.index): [
+            PrecinctState(ncbw=pb.ncbw, ncbh=pb.ncbh,
+                          blocks=[BlockState(cbx=g.cbx, cby=g.cby)
+                                  for g in pb.blocks],
+                          mb=band_mb(qcd, res.r, pb.band.band,
+                                     cod.num_levels))
+            for pb in p.bands] for res in res_list for p in res.precincts}
+
+        def pinfo(c, r):
+            lv = cod.num_levels
+            return [(p.index, p.x0 << (lv - r), p.y0 << (lv - r))
+                    for p in res_list[r].precincts]
+
+        out, pos = [], 0
+        for (lay, r, c, pidx) in progression_order(
+                cod.progression, cod.num_layers, cod.num_levels + 1, 1,
+                pinfo):
+            start = pos
+            pos = decode_packet(body, pos, states[(r, pidx)], lay,
+                                cod.cb_style)
+            out.append((r, body[start:pos]))
+        return out
+
+    h, w = frame_a.shape
+    css = [j2k.parse_codestream(J2KEncoder(
+        J2KEncodeParams(num_levels=lv), device=dev).encode(
+            f.astype("<u2").tobytes(), w, h, 1, 16))
+        for f, lv in ((frame_a, LEVELS), (frame_b, levels_b))]
+    tagged = sorted([(r, c, blob) for c, cs in enumerate(css)
+                     for (r, blob) in split(cs)], key=lambda t: t[:2])
+    siz = j2k.SizInfo(xsiz=w, ysiz=h, xtsiz=w, ytsiz=h,
+                      components=[css[0].siz.components[0]] * 2)
+    cod_b = css[1].cod
+    out = bytearray(b"\xff\x4f") + j2k.write_siz(siz)
+    out += j2k.write_cod(css[0].cod)
+    out += j2k.write_coc(j2k.CocInfo(
+        comp=1, num_levels=cod_b.num_levels, cb_width=cod_b.cb_width,
+        cb_height=cod_b.cb_height, cb_style=cod_b.cb_style,
+        transform=cod_b.transform), 2)
+    out += j2k.write_qcd(css[0].qcd) + j2k.write_qcc(1, css[1].qcd, 2)
+    out += j2k.write_tile_part(0, b"".join(b for (_, _, b) in tagged))
+    return bytes(out + j2k.EOC.to_bytes(2, "big"))
+
+
+class DeviceLaneEncoder(J2KEncoder):
+    """The scalar encoder with every tile transformed on its device lane
+    (``_tile_coeffs_device``, one frame at a time on the card), where its
+    lossy host fast path would take the native 9/7 (float, but not
+    bit-pinned to torch's). No ROI."""
+
+    def _tile_coeffs_timed(self, arr, rect, cod, qcd, bit_depth, signed,
+                           use_mct, roi_shifts=None,
+                           precomputed_coeffs=None) -> np.ndarray:
+        check(not roi_shifts and precomputed_coeffs is None,
+              "DeviceLaneEncoder: no ROI or precomputed tiles")
+        tx0, ty0, tx1, ty1 = rect
+        return self._tile_coeffs_device(arr[ty0:ty1, tx0:tx1, :], rect, cod,
+                                        qcd, bit_depth, signed, use_mct,
+                                        arr.shape[2])
+
+
+def mesh_profile(call) -> dict:
+    """Wall ms of one warm call, and the device ms, device operations and
+    largest device operations torch.profiler records over one more; None
+    where the profile recorded no device event (not measured)."""
+    wall = timed(call)[1] * 1e3
+    dev_ms, top, ops = device_bench.device_ms(call, iters=1)
+    if not ops:
+        return {"wall_ms": wall, "device_ms": None, "device_share": None}
+    return {"wall_ms": wall, "device_ms": dev_ms, "device_operations": ops,
+            "device_share": dev_ms / wall, "top": top}
+
+
+def mesh_phase(rng, dev, card: str, cards: list) -> dict:
+    """The port's multi-device scale-out (``parallel/``) at full width, on
+    a mesh of ``cards`` (every visible card) and on two shards of ``dev``
+    (cuda:0; tiles of 2):
+    32 gray 512² 12-bit frames (5 levels, lossless) whose sharded streams
+    equal ``encode_frames_pipelined`` on cuda:0 and the host engine's and
+    decode bit-exact, with one forward stage launch per tile and shard on
+    encode and one inverse per tile and shard on decode; 8 RGB 512² 8-bit
+    frames in four 256² tiles equal to the scalar ``J2KEncoder`` on cuda:0
+    (the RCT fused into the inverse stage); 8 gray 12-bit frames lossy at
+    quality 85 equal to the scalar encoder's device lane and decoding
+    within ±1 of the scalar decoder's; a COC batch
+    (component 1 at 4 levels) through the heterogeneous decode, equal to
+    ``J2KDecoder`` a frame; the dry run on four shards of cuda:0 (and on
+    every card where there are two or more); the two-process run; then
+    ``MESH`` lines of frames/s (three rounds in turns with the pipelines on
+    cuda:0) and of the device time of one sharded call. Returns the fused
+    stages' launches, each call counted from 0 just before it."""
+    import subprocess
+
+    from go_dicom_codec_torch.codecs.jpeg2000 import (J2KDecoder,
+                                                      J2KEncodeParams,
+                                                      J2KEncoder)
+    from go_dicom_codec_torch.parallel import (decode_frames_sharded,
+                                               encode_frames_sharded,
+                                               make_mesh)
+    from go_dicom_codec_torch.parallel.dryrun import dryrun_multichip
+
+    # name: (mesh, its positions)
+    meshes = {f"cards{len(cards)}": (make_mesh(cards), len(cards)),
+              "cuda0x2": (make_mesh([dev, dev], tile_parallel=2), 2)}
+    launches = {"encode": dict.fromkeys(MESH_STAGES, 0),
+                "decode": dict.fromkeys(MESH_STAGES, 0)}
+
+    def tally(lc: dict, way: str) -> None:
+        for k in MESH_STAGES:
+            launches[way][k] += lc[k]
+
+    gray = phantom(rng, B, 12)
+    pipelined = P.encode_frames_pipelined(gray, bit_depth=12, levels=LEVELS,
+                                          engine="device", device=dev)
+    host = P.encode_frames_pipelined(gray, bit_depth=12, levels=LEVELS,
+                                     engine="host", device=dev)
+    check(pipelined == host, "mesh: the pipelined streams differ from the "
+          "host engine's")
+    rgb = np.stack([phantom(rng, RGB_FRAMES, 8) for _ in range(3)], axis=-1)
+    p_rgb = J2KEncodeParams(num_levels=LEVELS, tile_width=H // 2,
+                            tile_height=W // 2)
+    scalar_rgb = [J2KEncoder(p_rgb, device=dev).encode(f, W, H, 3, 8)
+                  for f in rgb]
+    lossy = phantom(rng, RGB_FRAMES, 12)
+    p_lossy = J2KEncodeParams(num_levels=LEVELS, lossless=False, quality=85)
+    scalar_lossy = [DeviceLaneEncoder(p_lossy, device=dev).encode(
+        f, W, H, 1, 12) for f in lossy]
+    coc = [remux_coc(a, b, LEVELS - 1, dev) for a, b in zip(
+        phantom(rng, RGB_FRAMES, 16), phantom(rng, RGB_FRAMES, 16))]
+    coc_want = [J2KDecoder(device=dev).decode(s)[0] for s in coc]
+    profiles = {}
+    for name, (mesh, positions) in meshes.items():
+        nb = blocks(B, positions)
+        gray_streams, lc = counted(lambda: encode_frames_sharded(
+            gray, 12, False, LEVELS, mesh=mesh))
+        check(gray_streams == pipelined, f"mesh {name}: gray streams differ "
+              f"from the pipelined encoder's")
+        check_stage_launches(f"mesh {name} gray encode", lc, nb, 0)
+        tally(lc, "encode")
+        dec, lc = counted(lambda: decode_frames_sharded(gray_streams,
+                                                        mesh=mesh))
+        check(np.array_equal(np.stack(dec)[..., 0], gray),
+              f"mesh {name}: gray decode is not bit-exact")
+        check_stage_launches(f"mesh {name} gray decode", lc, 0, nb)
+        tally(lc, "decode")
+
+        nb_rgb = blocks(RGB_FRAMES, positions)
+        streams, lc = counted(lambda: encode_frames_sharded(
+            rgb, 8, mesh=mesh, params=p_rgb))
+        check(streams == scalar_rgb, f"mesh {name}: RGB streams differ from "
+              f"the scalar encoder's")
+        check_stage_launches(f"mesh {name} RGB encode", lc, 4 * nb_rgb, 0)
+        tally(lc, "encode")
+        dec, lc = counted(lambda: decode_frames_sharded(streams, mesh=mesh))
+        check(np.array_equal(np.stack(dec), rgb),
+              f"mesh {name}: RGB decode is not bit-exact")
+        check_stage_launches(f"mesh {name} RGB decode", lc, 0, 4 * nb_rgb)
+        tally(lc, "decode")
+
+        streams = encode_frames_sharded(lossy, 12, mesh=mesh,
+                                        params=p_lossy)
+        check(streams == scalar_lossy, f"mesh {name}: lossy streams differ "
+              f"from the scalar encoder's")
+        dec = np.stack(decode_frames_sharded(streams, mesh=mesh))
+        want = np.stack([J2KDecoder(device=dev).decode(s)[0]
+                         for s in streams])
+        lossy_err = int(np.abs(dec.astype(np.int64) - want).max())
+        check(lossy_err <= 1, f"mesh {name}: lossy decode off by "
+              f"{lossy_err} from the scalar decoder's")
+        src_err = int(np.abs(dec[..., 0].astype(np.int64) - lossy).max())
+
+        dec, lc = counted(lambda: decode_frames_sharded(coc, mesh=mesh))
+        check(all(np.array_equal(d, w) for d, w in zip(dec, coc_want)),
+              f"mesh {name}: COC decode differs from J2KDecoder's")
+        check_stage_launches(f"mesh {name} COC decode", lc, 0,
+                             2 * blocks(len(coc), positions))
+        tally(lc, "decode")
+        for way, call in (("encode", lambda: encode_frames_sharded(
+                gray, 12, False, LEVELS, mesh=mesh)),
+                ("decode", lambda: decode_frames_sharded(gray_streams,
+                                                         mesh=mesh))):
+            profiles[f"{name}_{way}"] = mesh_profile(call)
+        print(f"mesh {name} {mesh}: {B} gray {H}² streams == pipelined == "
+              f"host engine, decode bit-exact, {nb} forward and {nb} inverse "
+              f"launches; {RGB_FRAMES} RGB in 4 tiles == scalar encoder, "
+              f"decode bit-exact, {4 * nb_rgb} launches each way; lossy "
+              f"q85 streams == scalar encoder, decode within {lossy_err} "
+              f"of the scalar decoder "
+              f"(max |decode - source| {src_err}); COC batch == J2KDecoder")
+
+    summaries = [dryrun_multichip([dev] * 4)]
+    if len(cards) >= 2:
+        summaries.append(dryrun_multichip(cards))
+    for sm in summaries:
+        print(f"dry run on {sm['devices']}: mesh {sm['mesh']}, step "
+              f"{sm['step']}, cross-shard bit-plane sum {sm['cb_bits_total']}, "
+              f"{sm['frames']} frames byte-identical; passed")
+    mp = subprocess.run([sys.executable, "-m",
+                         "go_dicom_codec_torch.tools.multiproc_dryrun",
+                         "--device", dev.type],
+                        capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in mp.stdout.splitlines() if ln.startswith("MP|")]
+    print(*lines, sep="\n")
+    check(mp.returncode == 0 and len(lines) == 1
+          and json.loads(lines[0][3:])["ok"],
+          f"the two-process run failed (rc {mp.returncode}): "
+          f"{mp.stdout[-2000:]} {mp.stderr[-2000:]}")
+
+    # rates: the sharded calls on each mesh in turns with the pipelines on
+    # cuda:0 (device engine)
+    calls = {"pipelined_encode": lambda: P.encode_frames_pipelined(
+        gray, bit_depth=12, levels=LEVELS, engine="device", device=dev),
+        "pipelined_decode": lambda: P.decode_frames_pipelined(
+            pipelined, engine="device", device=dev)}
+    for name, (mesh, _) in meshes.items():
+        calls[f"{name}_encode"] = lambda mesh=mesh: encode_frames_sharded(
+            gray, 12, False, LEVELS, mesh=mesh)
+        calls[f"{name}_decode"] = lambda mesh=mesh: decode_frames_sharded(
+            pipelined, mesh=mesh)
+    r = rates(calls, B, MESH_ROUNDS)
+    print("MESH " + json.dumps({"path": "gray_j2k_lossless_512", "frames": B,
+                                "card": card, "rounds": MESH_ROUNDS, **r}))
+    for name, line in profiles.items():
+        print("MESH " + json.dumps({"call": name, "card": card, **line}))
+    return launches
+
+
 def run_port_bench(card: str) -> None:
     """The port bench's ``main()`` once at its full size; its JSON line
     goes out prefixed ``BENCH``."""
@@ -1320,6 +1620,7 @@ def main() -> int:
     print(card)
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda", 0)
+    cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     print(torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1369,6 +1670,7 @@ def main() -> int:
     codec_phase(rng, dev, card)
     families = families_phase(rng, dev, card)
     launches.update(jpeg_phase(rng, dev, card))
+    mesh_launches = mesh_phase(rng, dev, card, cards)
 
     times = time_kernels(dev, rng, qt)
     long_times = time_long_route()
@@ -1395,6 +1697,8 @@ def main() -> int:
             kernels[-1]["htj2k_201_launches"] = {
                 "encode": ht["encode"][name], "decode": ht["decode"][name],
                 "frames": B}
+            kernels[-1]["mesh_launches"] = {
+                way: mesh_launches[way][name] for way in mesh_launches}
     print(card)
     print(json.dumps({"kernels": kernels, "gpu": card}))
     print(json.dumps({"ok": True, "device": {

@@ -26,12 +26,14 @@ from ..codestream import j2k
 from ..entropy.ebcot import T1Decoder, T1Encoder
 from ..errors import CorruptStreamError, UnsupportedFormatError
 from ..ops.convert import round_to_int32_sat
-from ..ops.dwt53 import fwd53_multilevel_, inv53_multilevel_
+from ..ops.dwt53 import inv53_multilevel_
 from ..ops.dwt97 import fwd97_multilevel, inv97_multilevel
+from ..ops.j2k_fwd_stage import fwd_stage
 from ..ops.mct import (dc_level_shift, dc_level_shift_np, ict_forward,
                        ict_inverse, inv_dc_level_shift,
-                       inv_dc_level_shift_np, rct_forward, rct_forward_np,
-                       rct_inverse, rct_inverse_np)
+                       inv_dc_level_shift_np, mct_matrix_forward,
+                       rct_forward, rct_forward_np, rct_inverse,
+                       rct_inverse_np)
 from ..t2.packets import (BlockState, PrecinctState, decode_packet,
                           decode_packet_split, encode_packet,
                           progression_order)
@@ -641,18 +643,9 @@ class J2KEncoder:
                 fcoeffs = np.stack([
                     _nat.dwt97_fwd_native(c, cod.num_levels, tx0, ty0)
                     for c in comps_np])
-                coeffs = np.zeros(fcoeffs.shape, dtype=np.int32)
-                band_steps = self._band_deltas(qcd, cod.num_levels,
-                                               bit_depth)
-                from .j2k_geometry import packed_band_layout
-                for bg in packed_band_layout(tx0, ty0, tx1, ty1,
-                                             cod.num_levels):
-                    delta = band_steps[_band_index(bg.resolution,
-                                                   bg.band)]
-                    sl = (slice(None),
-                          slice(bg.row_off, bg.row_off + bg.height),
-                          slice(bg.col_off, bg.col_off + bg.width))
-                    coeffs[sl] = jq.deadzone_quantize(fcoeffs[sl], delta)
+                coeffs = quantize_packed(
+                    fcoeffs, rect, cod.num_levels,
+                    self._band_deltas(qcd, cod.num_levels, bit_depth))
         if coeffs is None:
             coeffs = self._tile_coeffs_device(
                 tile, rect, cod, qcd, bit_depth, signed, use_mct, ncomp)
@@ -695,60 +688,18 @@ class J2KEncoder:
                             qcd: j2k.QcdInfo, bit_depth: int, signed: bool,
                             use_mct: bool, ncomp: int) -> np.ndarray:
         """Device (torch) tile transform: DC shift (+MCT) + DWT (+quant)."""
-        tx0, ty0, tx1, ty1 = rect
-        comps = _to_device(np.moveaxis(tile, -1, 0), self.device)  # [C, H, W]
-        comps = dc_level_shift(comps, bit_depth, signed)
-        lossless = cod.transform == 1
-        if self.params.mct_bindings:
-            from ..ops.mct import mct_matrix_forward
-            for b in self.params.mct_bindings:
-                ids = list(b.component_ids) or list(range(ncomp))
-                idx = torch.as_tensor(ids, device=comps.device)
-                m = torch.as_tensor(np.asarray(b.matrix, dtype=np.float32))
-                offs = (torch.as_tensor(np.asarray(b.offsets,
-                                                   dtype=np.float32))
-                        if b.offsets else None)
-                sub = mct_matrix_forward(comps[idx].to(torch.float32),
-                                         m, offs)
-                comps = comps.to(torch.float32, copy=True)
-                comps[idx] = sub
-            if lossless:
-                comps = round_to_int32_sat(comps)
-        elif self.params.mct_matrix is not None:
-            from ..ops.mct import mct_matrix_forward
-            m = torch.as_tensor(np.asarray(self.params.mct_matrix,
-                                           dtype=np.float32))
-            offs = (torch.as_tensor(np.asarray(self.params.mct_offsets,
-                                               dtype=np.float32))
-                    if self.params.mct_offsets else None)
-            comps = mct_matrix_forward(comps, m, offs)
-            if lossless:
-                comps = round_to_int32_sat(comps)
-        if lossless:
-            if use_mct and ncomp == 3 and self.params.mct_matrix is None:
-                y, u, v = rct_forward(comps[0], comps[1], comps[2])
-                comps = torch.stack([y, u, v])
-            coeffs = fwd53_multilevel_(
-                comps.to(torch.int32, copy=True,
-                         memory_format=torch.contiguous_format),
-                cod.num_levels, x0=tx0, y0=ty0).cpu().numpy()
-        else:
-            if use_mct and ncomp == 3 and self.params.mct_matrix is None:
-                y, cb, cr = ict_forward(comps[0], comps[1], comps[2])
-                comps = torch.stack([y, cb, cr])
-            fcoeffs = fwd97_multilevel(comps, cod.num_levels,
-                                       x0=tx0, y0=ty0).cpu().numpy()
-            # per-band deadzone quantization with the QCD-encoded steps
-            coeffs = np.zeros_like(fcoeffs, dtype=np.int32)
-            band_steps = self._band_deltas(qcd, cod.num_levels, bit_depth)
-            from .j2k_geometry import packed_band_layout
-            for bg in packed_band_layout(tx0, ty0, tx1, ty1, cod.num_levels):
-                delta = band_steps[_band_index(bg.resolution, bg.band)]
-                sl = (slice(None),
-                      slice(bg.row_off, bg.row_off + bg.height),
-                      slice(bg.col_off, bg.col_off + bg.width))
-                coeffs[sl] = jq.deadzone_quantize(fcoeffs[sl], delta)
-        return coeffs
+        p = self.params
+        comps = _to_device(np.moveaxis(tile, -1, 0)[None], self.device)
+        coeffs = tile_coeffs_device(
+            comps, rect[0], rect[1], cod.num_levels, bit_depth, signed,
+            use_mct, cod.transform == 1, p.mct_bindings, p.mct_matrix,
+            p.mct_offsets)[0].cpu().numpy()
+        if cod.transform == 1:
+            return coeffs
+        # per-band deadzone quantization with the QCD-encoded steps
+        return quantize_packed(coeffs, rect, cod.num_levels,
+                               self._band_deltas(qcd, cod.num_levels,
+                                                 bit_depth))
 
     def _encode_tile_entropy(self, coeffs: np.ndarray, rect,
                              cod: j2k.CodInfo, qcd: j2k.QcdInfo,
@@ -1243,6 +1194,72 @@ class J2KEncoder:
             e, m = qcd.steps[i] if i < len(qcd.steps) else (rb, 0)
             out.append(jq.decode_step(e, m, rb))
         return out
+
+
+def tile_coeffs_device(comps: torch.Tensor, x0: int, y0: int, levels: int,
+                       bit_depth: int, signed: bool, use_mct: bool,
+                       lossless: bool, mct_bindings=(), mct_matrix=None,
+                       mct_offsets=None) -> torch.Tensor:
+    """The encoder's device stage of one tile over a leading frame axis:
+    [F, C, h, w] samples on their device → DC shift (+ Part-2 bindings or
+    matrix, or RCT/ICT) → 5/3 (int32) or 9/7 (float32, not quantized) at
+    the tile origin (x0, y0). Every op is elementwise across frames, so
+    J2KEncoder (one frame) and the sharded encode (parallel/mesh.py, a
+    block of frames) get the same coefficients. On a CUDA tensor the 5/3
+    is one launch of csrc/j2k_fwd_stage.cu, the DC shift fused into it
+    when no colour transform precedes it."""
+    def matrix_forward(x, matrix, offsets):
+        # the component axis first, as mct_matrix_forward takes it;
+        # offsets subtract before the matrix
+        m = torch.as_tensor(np.asarray(matrix, dtype=np.float32))
+        offs = (torch.as_tensor(np.asarray(offsets, dtype=np.float32))
+                if offsets else None)
+        return mct_matrix_forward(x.transpose(0, 1), m, offs).transpose(0, 1)
+
+    ncomp = comps.shape[1]
+    colour = use_mct and ncomp == 3 and mct_matrix is None
+    if lossless and not mct_bindings and mct_matrix is None and not colour:
+        return fwd_stage(comps, 0 if signed else 1 << (bit_depth - 1),
+                         levels, x0, y0)
+    comps = dc_level_shift(comps.to(torch.int32), bit_depth, signed)
+    if mct_bindings:
+        for b in mct_bindings:
+            ids = list(b.component_ids) or list(range(ncomp))
+            idx = torch.as_tensor(ids, device=comps.device)
+            sub = matrix_forward(comps[:, idx].to(torch.float32), b.matrix,
+                                 b.offsets)
+            comps = comps.to(torch.float32, copy=True)
+            comps[:, idx] = sub
+    elif mct_matrix is not None:
+        comps = matrix_forward(comps, mct_matrix, mct_offsets)
+    if lossless:
+        if comps.is_floating_point():
+            comps = round_to_int32_sat(comps)
+        if colour:
+            comps = torch.stack(rct_forward(comps[:, 0], comps[:, 1],
+                                            comps[:, 2]), dim=1)
+        return fwd_stage(comps, 0, levels, x0, y0)
+    if colour:
+        comps = torch.stack(ict_forward(comps[:, 0], comps[:, 1],
+                                        comps[:, 2]), dim=1)
+    return fwd97_multilevel(comps, levels, x0=x0, y0=y0)
+
+
+def quantize_packed(fcoeffs: np.ndarray, rect, levels: int,
+                    deltas) -> np.ndarray:
+    """Per-band deadzone quantization of packed float coefficients
+    ([..., th, tw]) into int32 with per-band absolute deltas (QCD band
+    order): the inverse of dequantize_packed, shared by the encoder's
+    host and device lanes and the sharded encode."""
+    from .j2k_geometry import packed_band_layout
+    tx0, ty0, tx1, ty1 = rect
+    out = np.zeros(fcoeffs.shape, dtype=np.int32)
+    for bg in packed_band_layout(tx0, ty0, tx1, ty1, levels):
+        delta = deltas[_band_index(bg.resolution, bg.band)]
+        rs = slice(bg.row_off, bg.row_off + bg.height)
+        cs_ = slice(bg.col_off, bg.col_off + bg.width)
+        out[..., rs, cs_] = jq.deadzone_quantize(fcoeffs[..., rs, cs_], delta)
+    return out
 
 
 def dequantize_packed(packed: np.ndarray, rect, levels: int,

@@ -15,7 +15,9 @@ The decoder also handles subsampled (H,V) streams and restart intervals
 
 Port of ``go_dicom_codec_tpu/codecs/jpeg_baseline.py``: ``encode`` and
 ``decode`` take the ``torch.device`` and the transform engine their device
-stages use (``pipeline``'s ``engine``); ``JPEGBaselineCodec`` holds both,
+stages use (``pipeline``'s ``engine``); ``device`` is a required keyword,
+as in ``J2KEncoder`` (an explicit None means no device: the host lanes
+alone), since nothing picks a device. ``JPEGBaselineCodec`` holds both,
 takes the pipelined encode for multi-frame gray as the engine says, and
 ``register`` fills a registry the caller passes instead of the global one.
 Unlike the reference, whose decode always takes the native IDCT when the
@@ -66,7 +68,7 @@ def encode(pixels: bytes | np.ndarray, width: int, height: int,
            sof_marker: int = mk.SOF0, precision: int = 8,
            write_jfif: bool = False,
            optimize_huffman: Optional[bool] = None, *,
-           device: Optional[torch.device] = None,
+           device: Optional[torch.device],
            engine: str = "auto") -> bytes:
     """Byte-level encode (reference jpeg/baseline/encoder.go:26-116).
 
@@ -242,7 +244,7 @@ def _assemble_stream(scan: bytes, qtables, dc_tabs, ac_tabs, width: int,
 def decode(data: bytes,
            expected_sofs: Tuple[int, ...] = (mk.SOF0,),
            max_precision: int = 8, *,
-           device: Optional[torch.device] = None, engine: str = "auto"):
+           device: Optional[torch.device], engine: str = "auto"):
     """Byte-level decode → (pixels bytes, width, height, components).
 
     Mirrors reference jpeg/baseline/decoder.go:40-111's marker loop. The

@@ -387,7 +387,10 @@ def idct_and_assemble(cf: np.ndarray, qtable: np.ndarray, precision: int,
     non-integer ratios, libjpeg-style upsample otherwise.
 
     Shared by the sequential (jpeg_baseline) and progressive
-    (jpeg_progressive) decoders. The device lane reads the plane back in
+    (jpeg_progressive) decoders. Unlike the codecs' ``encode`` and
+    ``decode``, ``device`` keeps its default of None (the native lane):
+    jpeg_progressive.py is a verbatim copy of the reference and calls this
+    without a device (its line 156). The device lane reads the plane back in
     the narrowest unsigned dtype that holds it: the same values as the
     native lane's int32.
     """

@@ -8,8 +8,9 @@ stage reuses the batched DCT/quant kernels (float32 is exact for 12-bit
 sums).
 
 Port of ``go_dicom_codec_tpu/codecs/jpeg_extended.py``: ``encode``,
-``decode`` and ``JPEGExtendedCodec`` take the ``torch.device`` and the
-transform engine of the baseline port (``jpeg_baseline``), and
+``decode`` and ``JPEGExtendedCodec`` take the ``torch.device`` (a required
+keyword; an explicit None means no device) and the transform engine of the
+baseline port (``jpeg_baseline``), and
 ``register`` fills a registry the caller passes instead of the global one.
 """
 
@@ -47,7 +48,7 @@ class JPEGExtendedParameters(Parameters):
 
 def encode(pixels: bytes, width: int, height: int, components: int,
            bit_depth: int, quality: int = 90, *,
-           device: Optional[torch.device] = None,
+           device: Optional[torch.device],
            engine: str = "auto") -> bytes:
     """Byte-level encode (reference jpeg/extended/encoder_simple.go:14-31)."""
     if bit_depth == 8:
@@ -83,7 +84,7 @@ def detect_bit_depth(data: bytes) -> int:
     return detect_sof(data)[1]
 
 
-def decode(data: bytes, *, device: Optional[torch.device] = None,
+def decode(data: bytes, *, device: Optional[torch.device],
            engine: str = "auto"):
     """Byte-level decode → (pixels, width, height, components, bit_depth).
 

@@ -116,33 +116,59 @@ def fetch_coeffs(result, x: torch.Tensor, bits: int, signed: bool, lv: int,
     return wide.cpu().numpy()
 
 
+def _mct_inverse(rec: torch.Tensor, mct_inv) -> torch.Tensor:
+    """[B, C, th, tw] → the Part-2 inverse matrices of ``mct_inv``
+    ([(ids, inv, offsets)], in the order they apply) over the component
+    axis, float32, as J2KDecoder applies them to one tile."""
+    from .codecs.jpeg2000 import _apply_mct_bindings_inverse
+
+    return _apply_mct_bindings_inverse(rec.transpose(0, 1),
+                                       mct_inv).transpose(0, 1)
+
+
 def _j2k_decode_device_stage(packed: torch.Tensor, levels: int, x0: int,
                              y0: int, bits: int, signed: bool, mct: bool,
-                             narrow: bool = False) -> torch.Tensor:
+                             narrow: bool = False,
+                             mct_inv=()) -> torch.Tensor:
     """[B, C, th, tw] packed coefficients (int32, or int16 when the host
     verified they fit) → samples: inverse 5/3, inverse RCT, DC unshift.
 
     With ``narrow`` the samples are clipped to the declared range (the
     identity for conformant streams; it stops hostile coefficients from
     wrapping through the cast) and cast to int16/uint16. On a CUDA tensor
-    the whole stage is one launch of csrc/j2k_inv_stage.cu.
+    the whole stage is one launch of csrc/j2k_inv_stage.cu. With Part-2
+    inverse matrices (``mct_inv``, see _mct_inverse) they replace the
+    inverse RCT and round before the unshift; the 5/3 is then the
+    stage's ``coeffs`` launch.
     """
-    return inv_stage(packed, levels, x0, y0, bits, signed, mct,
-                     "narrow" if narrow else "pixels")
+    if not mct_inv:
+        return inv_stage(packed, levels, x0, y0, bits, signed, mct,
+                         "narrow" if narrow else "pixels")
+    rec = inv53_multilevel_(
+        packed.to(torch.int32, copy=True,
+                  memory_format=torch.contiguous_format),
+        levels, x0=x0, y0=y0)
+    px = inv_dc_level_shift(round_to_int32_sat(_mct_inverse(rec, mct_inv)),
+                            bits, signed)
+    return narrow_pixels(px, bits, signed) if narrow else px
 
 
 def _j2k_decode_device_stage_97(fbatch: torch.Tensor, levels: int, x0: int,
                                 y0: int, bits: int, signed: bool, mct: bool,
-                                narrow: bool = False) -> torch.Tensor:
+                                narrow: bool = False,
+                                mct_inv=()) -> torch.Tensor:
     """[B, C, th, tw] dequantized float32 coefficients → samples: float
-    9/7 inverse, inverse ICT, round, DC unshift.
+    9/7 inverse, inverse ICT (or the Part-2 inverse matrices of
+    ``mct_inv``), round, DC unshift.
 
     With ``narrow`` the samples are clipped to the declared range before
     the 16-bit cast: lossy reconstructions overshoot it by a few codes,
     and an unclipped -1 would wrap to 65535.
     """
     rec = inv97_multilevel(fbatch, levels, x0=x0, y0=y0)
-    if mct and rec.shape[1] >= 3:
+    if mct_inv:
+        rec = _mct_inverse(rec, mct_inv)
+    elif mct and rec.shape[1] >= 3:
         rgb = torch.stack(ict_inverse(rec[:, 0], rec[:, 1], rec[:, 2]),
                           dim=1)
         rec = torch.cat([rgb, rec[:, 3:]], dim=1)
@@ -303,20 +329,21 @@ class _Lane:
     reads a chunk's results only after that event, and the pinned
     buffers of a slot are written again only after the event of the
     chunk that last used them. On the CPU the same calls run
-    synchronously.
+    synchronously. ``slots`` chunks may be in flight at once: two for a
+    pipeline, every chunk of a call for a shard of the sharded paths
+    (parallel/mesh.py), which issue all their work before the first read.
     """
 
-    SLOTS = 2
-
-    def __init__(self, device: torch.device) -> None:
+    def __init__(self, device: torch.device, slots: int = 2) -> None:
         if device.type not in ("cuda", "cpu"):
             raise ValueError(f"pipeline: no lane for device {device}")
         self.device = device
         self.cuda = device.type == "cuda"
         self.stream = _side_stream(device) if self.cuda else None
-        self._pinned = [{} for _ in range(self.SLOTS)]
-        self._busy = [None] * self.SLOTS
-        self._unread = [False] * self.SLOTS
+        self.slots = slots
+        self._pinned = [{} for _ in range(slots)]
+        self._busy = [None] * slots
+        self._unread = [False] * slots
         self._next = 0
 
     def _buffer(self, slot: int, key, shape, dtype) -> torch.Tensor:
@@ -331,7 +358,7 @@ class _Lane:
         """Upload ``arrays`` and start ``stage(*tensors)``, which returns a
         tensor or a tuple of tensors on the device, and their copies back."""
         slot = self._next
-        self._next = (slot + 1) % self.SLOTS
+        self._next = (slot + 1) % self.slots
         if self._unread[slot]:
             raise RuntimeError("pipeline: a chunk's results were not read "
                                "before its buffers came round again")

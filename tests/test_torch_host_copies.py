@@ -45,7 +45,8 @@ PORTED = (
     "ops/__init__.py", "ops/blockstats.py", "ops/dct8x8.py",
     "ops/dct_int.py", "ops/dwt53.py", "ops/dwt97.py", "ops/mct.py",
     "ops/planes.py",
-    "tools/__init__.py", "tools/device_bench.py",
+    "parallel/__init__.py", "parallel/mesh.py",
+    "tools/__init__.py", "tools/device_bench.py", "tools/multiproc_dryrun.py",
 )
 
 

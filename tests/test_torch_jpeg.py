@@ -202,3 +202,29 @@ def test_codecs_hold_device_and_engine():
         jpeg_baseline.JPEGBaselineCodec(CPU, "tpu")
     assert not jpeg_baseline.use_pipeline(CPU, "auto")
     assert jpeg_baseline.use_pipeline(CPU, "device")
+
+
+@pytest.mark.parametrize("call", ("baseline_encode", "baseline_decode",
+                                  "extended_encode", "extended_decode"))
+def test_device_is_required(call):
+    """``device`` is a required keyword of the codecs' byte-level encode
+    and decode, as in ``J2KEncoder``: a call without it raises TypeError
+    (nothing picks a device); an explicit None runs the host lanes and
+    equals the reference."""
+    from go_dicom_codec_torch.codecs import jpeg_extended
+
+    px = (np.arange(16 * 24) % 251).astype(np.uint8).tobytes()
+    stream = ref.codecs.jpeg_baseline.encode(px, 24, 16, 1, 90)
+    fn, args = {
+        "baseline_encode": (jpeg_baseline.encode, (px, 24, 16, 1, 90)),
+        "baseline_decode": (jpeg_baseline.decode, (stream,)),
+        "extended_encode": (jpeg_extended.encode, (px, 24, 16, 1, 8, 90)),
+        "extended_decode": (jpeg_extended.decode, (stream,)),
+    }[call]
+    with pytest.raises(TypeError, match="device"):
+        fn(*args)
+    got = fn(*args, device=None)
+    if call.endswith("encode"):
+        assert got == stream
+    else:
+        assert got[0] == ref.codecs.jpeg_baseline.decode(stream)[0]

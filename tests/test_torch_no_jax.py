@@ -7,8 +7,9 @@ blocks ``jax`` before anything is imported and runs the CPU slice once:
 the device stages (the encode stages, the decode stage and the inverse
 stage under it), the device bench, encode and decode through the port's
 codec registry (.90, .91, .80, .70, .201 and .5 on both engines, .50 and
-.51 on the device engine, with the islow stages under them) and the port
-bench at a tiny size.
+.51 on the device engine, with the islow stages under them), a 2-shard
+sharded encode and decode (parallel/mesh.py) and the port bench at a tiny
+size.
 """
 
 import subprocess
@@ -116,6 +117,15 @@ for uid, bits in ((gdc.uids.JPEG_BASELINE_8BIT, 8),
         got = np.frombuffer(dec.get_frame(i), dt).astype(np.int64)
         want = np.frombuffer(src.get_frame(i), dt).astype(np.int64)
         assert np.abs(got - want).max() <= (1 << bits) // 16, uid
+
+# the sharded encode and decode over a mesh of two CPU shards
+from go_dicom_codec_torch.parallel import (decode_frames_sharded,
+                                           encode_frames_sharded, make_mesh)
+mesh = make_mesh([torch.device("cpu")] * 2)
+streams = encode_frames_sharded(frames, bit_depth=12, levels=3, mesh=mesh)
+assert len(streams) == 3
+got = decode_frames_sharded(streams, mesh=mesh)
+assert all(np.array_equal(g[..., 0], f) for g, f in zip(got, frames))
 
 # the port bench at a tiny size
 from go_dicom_codec_torch.tools import bench
