@@ -92,15 +92,33 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    line names the backend); ``MESH`` lines of encode and decode frames/s
    (three rounds in turns with the pipelines on cuda:0) and of the device
    time of one sharded call;
-9. prints the device bench rows, one JSON object of kernel results
+9. drives the port's tools on cuda:0 (``tools_phase``): ``tools.fuzz``,
+   400 trials of every family on the device engine from seed base 77000
+   with no failure, the trials themselves launching ``j2k_inv_stage`` and
+   ``jpeg_idct_islow``, then a known-good .90 512² decode bit-exact (the
+   CUDA context survived); ``tools.transcode``, the clinical CT as .npy
+   through j2k → htj2k → jls → npy bit-exact and the XR through baseline →
+   npy within 64, every step's file equal to the same chain on the CPU,
+   with both forward and both inverse kernels launched;
+   ``python -m go_dicom_codec_torch.tools.interop --fixture clinical
+   --parallel 2`` on the card, 18 rows and the multi-frame lanes passing;
+   ``tools.benchmarks``' per-UID table at 512², 4 frames (the default 11
+   UIDs and the other three through the registry, all 14 on the host
+   engine) and its pipeline row at 8 frames, with ``BENCH|`` lines naming
+   the card; ``tools.perf_check --emit-json`` at 256² (printed, no gate);
+   ``utils.profiling.torch_trace`` around a registry .90 encode of 32
+   frames, whose Chrome trace names the forward stage's kernel;
+10. prints the device bench rows (``BENCH|``, the 9/7 and color rows
+   among them), one JSON object of kernel results
    (each with its event, device and host ms; the DCT's with an x+1 copy
    of its input timed beside it; the islow kernels' launches from the
    JPEG phase, with the forward of 12-bit samples and the inverse of one
    frame timed beside them; the lifting passes' with a
    ``long_route`` entry: its launches in the main path and the level-1
    pass of [2, 16, 65535] and [2, 65535, 16] timed against its plain
-   version and bound; the fused stages' ``mesh_launches``), and as its
-   last line
+   version and bound; the fused stages' ``mesh_launches``; every kernel's
+   ``tools_launches`` of the fuzz, transcode and benchmarks runs), and as
+   its last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits non-zero and prints no ok line. Imports no JAX.
@@ -1601,6 +1619,240 @@ def mesh_phase(rng, dev, card: str, cards: list) -> dict:
     return launches
 
 
+# ---- the tools phase ----------------------------------------------------
+
+FUZZ_TRIALS = 400
+FUZZ_SEED_BASE = 77000
+TOOLS_DEVICE = ("--device", "cuda:0")
+# transcode chains: (fixture key, crop, steps of (target, extra argv),
+# largest |decode - source| allowed: interop's tolerance for the lossy row)
+TRANSCODE_CHAINS = (
+    ("ct_u12", None, (("j2k", ("--bits", "12")), ("htj2k", ()), ("jls", ()),
+                      ("npy", ())), 0),
+    ("xr_u8", 512, (("baseline", ()), ("npy", ())), 64),
+)
+BENCH_EXTRA_UIDS = (U.JPEG_2000_MC_LOSSLESS, U.JPEG_2000_MC_LOSSY,
+                    U.HTJ2K_LOSSLESS_RPCL)
+
+
+def tool(main_fn, argv) -> tuple:
+    """A tool's ``main(argv)`` in this process: (exit code, its stdout)."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(list(argv))
+    return rc, out.getvalue()
+
+
+def fuzz_phase(rng, dev) -> dict:
+    """400 trials of every family on the card's device engine from seed base
+    77000: no failure, the inverse stage and the islow inverse launched by
+    the trials themselves; then a known-good .90 decode of a 512² frame is
+    bit-exact (the CUDA context survived the campaign)."""
+    from go_dicom_codec_torch.codecs.jpeg2000 import (J2KDecoder,
+                                                      J2KEncodeParams)
+    from go_dicom_codec_torch.tools import fuzz
+
+    (rc, out), lc = counted(lambda: tool(fuzz.main, (
+        "--trials", str(FUZZ_TRIALS), "--seed-base", str(FUZZ_SEED_BASE),
+        *TOOLS_DEVICE, "--engine", "device")))
+    print(out.strip())
+    summary = json.loads(out.strip().splitlines()[-1].split("|", 1)[1])
+    check(rc == 0 and summary["failures"] == 0
+          and summary["trials"] == FUZZ_TRIALS, f"fuzz: exit {rc}")
+    print(f"FUZZ launches {json.dumps(lc)}")
+    check(lc["j2k_inv_stage"] > 0 and lc["jpeg_idct_islow"] > 0,
+          "the fuzz campaign reached neither inverse kernel")
+    frame = phantom(rng, 1, 12)[0]
+    stream = J2KEncoder(J2KEncodeParams(), device=dev,
+                        engine="host").encode(frame, W, H, 1, 12)
+    (got, _, _), alive = counted(lambda: J2KDecoder(
+        device=dev, engine="device").decode(stream))
+    check(np.array_equal(got[:, :, 0], frame) and alive["j2k_inv_stage"] == 1,
+          "the .90 decode after the fuzz campaign is not bit-exact")
+    print(f"FUZZ alive: a .90 {H}x{W} frame decodes bit-exact after the "
+          f"campaign, {alive['j2k_inv_stage']} j2k_inv_stage launch")
+    return lc
+
+
+def transcode_phase(workdir: str) -> dict:
+    """The clinical CT (288² 12-bit) as .npy through j2k → htj2k → jls →
+    npy, bit-exact, and the XR (512² crop, 8-bit) through baseline → npy
+    within 64, on the card's device engine; every step's file equal to
+    the same chain in this process on the CPU."""
+    import io
+    import os
+
+    from go_dicom_codec_torch.tools import transcode
+
+    z = np.load(CLINICAL)
+    total = {}
+    for key, crop, steps, tol in TRANSCODE_CHAINS:
+        img = z[key] if crop is None else z[key][:crop, :crop]
+        buf = io.BytesIO()
+        np.save(buf, img)
+        src = os.path.join(workdir, f"{key}.npy")
+        with open(src, "wb") as f:
+            f.write(buf.getvalue())
+        cur = {"card": src, "cpu": src}
+        for i, (target, extra) in enumerate(steps):
+            for lane, dev_arg in (("card", TOOLS_DEVICE),
+                                  ("cpu", ("--device", "cpu"))):
+                nxt = os.path.join(workdir, f"{key}.{i}.{lane}.{target}")
+                argv = (cur[lane], nxt, "--to", target, *extra, *dev_arg,
+                        "--engine", "device")
+                if lane == "card":
+                    (rc, out), lc = counted(lambda: tool(transcode.main,
+                                                         argv))
+                    for k, v in lc.items():
+                        total[k] = total.get(k, 0) + v
+                    print(out.strip() + f" (card, launches "
+                          f"{json.dumps({k: v for k, v in lc.items() if v})})")
+                else:
+                    rc, out = tool(transcode.main, argv)
+                check(rc == 0, f"transcode {key} → {target} on {lane}")
+                cur[lane] = nxt
+            with open(cur["card"], "rb") as a, open(cur["cpu"], "rb") as b:
+                check(a.read() == b.read(), f"transcode {key} → {target}: "
+                      f"the card's file differs from the CPU's")
+        with open(cur["card"], "rb") as f:
+            back = np.load(io.BytesIO(f.read()))
+        err = int(np.abs(back.astype(np.int64) - img).max())
+        check(back.shape == img.shape and err <= tol,
+              f"transcode {key}: off by {err}")
+        print(f"TRANSCODE {key} {list(img.shape)} "
+              f"{' → '.join(t for t, _ in steps)}: max |out - in| {err} "
+              f"(≤ {tol}), every step equal to the CPU lane's bytes")
+    check(all(total[k] > 0 for k in ("j2k_fwd_stage", "j2k_inv_stage",
+                                     "jpeg_fdct_islow", "jpeg_idct_islow")),
+          f"transcode launches {total}")
+    return total
+
+
+def interop_phase() -> None:
+    """``python -m go_dicom_codec_torch.tools.interop --fixture clinical
+    --parallel 2`` on cuda:0: all 18 rows pass, the five rows of .90, .92,
+    .201 and .202 with their multi-frame lane."""
+    import os
+    import subprocess
+
+    from go_dicom_codec_torch.tools.interop import FORMAT_DEFINITIONS
+
+    multi = sum(row[1] in (U.JPEG_2000_LOSSLESS, U.JPEG_2000_MC_LOSSLESS,
+                           U.HTJ2K_LOSSLESS, U.HTJ2K_LOSSLESS_RPCL)
+                for row in FORMAT_DEFINITIONS)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "go_dicom_codec_torch.tools.interop",
+         "--fixture", "clinical", "--parallel", "2", *TOOLS_DEVICE],
+        capture_output=True, text=True, cwd=root, env=env, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("INTEROP|")]
+    print("\n".join(lines))
+    passed = [ln for ln in lines if ln.startswith("INTEROP|pass|")]
+    check(proc.returncode == 0 and len(passed) == 18 == len(lines) - 1
+          and sum("mf=3frames-ok" in ln for ln in passed) == multi == 5
+          and lines[-1] == "INTEROP|done|formats=18|failures=0",
+          f"interop: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    print(f"INTEROP clinical, 2 workers on {TOOLS_DEVICE[1]}: 18/18 pass, "
+          f"{multi} multi-frame lanes, {time.perf_counter() - t0:.1f} s")
+
+
+def benchmarks_phase() -> dict:
+    """The per-UID table at 512², 4 frames: the default 11 UIDs and the
+    other three through ``make_registry(cuda:0)``, all 14 on the host
+    engine; the pipeline row at 512², 8 frames; ``perf_check --emit-json``
+    at 256² over the 14 UIDs (printed, no gate). Returns the launches."""
+    from go_dicom_codec_torch.tools import benchmarks, perf_check
+
+    base = ("--size", "512", "--frames", "4", "--repeats", "3",
+            *TOOLS_DEVICE)
+    runs = (("registry", base),
+            ("registry", (*base, "--uids", ",".join(BENCH_EXTRA_UIDS))),
+            ("host", (*base, "--engine", "host", "--uids",
+                      ",".join(PORT_UIDS))),
+            ("pipeline", ("--pipeline", "--size", "512", "--frames", "8",
+                          *TOOLS_DEVICE)))
+    total = {}
+    for name, argv in runs:
+        (rc, out), lc = counted(lambda: tool(benchmarks.main, argv))
+        check(rc == 0, f"benchmarks {argv}: exit {rc}")
+        bench = [ln for ln in out.splitlines() if ln.startswith("BENCH|")]
+        print("\n".join(bench))
+        for ln in bench:
+            row = json.loads(ln.split("|", 1)[1])
+            check(row.get("lossless_exact") is not False,
+                  f"benchmarks: {row.get('name')} not exact")
+        for k, v in lc.items():
+            total[f"{name}_{k}"] = total.get(f"{name}_{k}", 0) + v
+    check(all(v == 0 for k, v in total.items() if k.startswith("host_")),
+          "the host engine's benchmark launched a kernel")
+    rc, out = tool(perf_check.main, ("--emit-json", "--size", "256",
+                                     *TOOLS_DEVICE))
+    line = json.loads(out.strip().splitlines()[-1])
+    check(rc == 0 and len(line["codecs"]) == 14, "perf_check --emit-json")
+    print("PERF|" + json.dumps(line))
+    return {k: v for k, v in total.items() if v}
+
+
+def trace_phase(rng, dev, workdir: str) -> None:
+    """``torch_trace`` around one registry .90 encode of 32 gray 512²
+    frames: a Chrome trace that names the forward stage's kernel. The
+    count of its events is printed beside the launches, not held to them:
+    torch.profiler drops some device events on the card's machine."""
+    import glob
+    import os
+
+    frames = phantom(rng, B, 12)
+    info, src = pixel_data(frames, 12, False)
+    codec = gdc.make_registry(dev).get_codec(U.JPEG_2000_LOSSLESS)
+    codec.encode(src, gdc.MemoryPixelData(info=info, encapsulated=True))
+    log_dir = os.path.join(workdir, "trace")
+    _kernels.reset_launch_counts()
+    with profiling.torch_trace(log_dir):
+        codec.encode(src, gdc.MemoryPixelData(info=info, encapsulated=True))
+        torch.cuda.synchronize()
+    launched = _kernels.launch_counts["j2k_fwd_stage"]
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    check(len(files) == 1, f"torch_trace wrote {files}")
+    with open(files[0]) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    stage = [n for n in names if "fwd_stage_kernel" in n]
+    check(launched > 0 and 0 < len(stage) <= launched,
+          f"the trace holds {len(stage)} forward stage kernels of "
+          f"{launched} launches")
+    print(f"TRACE {os.path.basename(files[0])}: {len(names)} kernel "
+          f"events, {len(stage)} of them {stage[0][:60]!r}, of "
+          f"{launched} j2k_fwd_stage launches in one registry .90 encode "
+          f"of {B} frames")
+
+
+def tools_phase(rng, dev) -> dict:
+    """The port's tools on the card, each phase's launches counted from 0
+    (interop's run in its own worker processes, uncounted)."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="gdct_tools_")
+    try:
+        launches = {"fuzz": fuzz_phase(rng, dev),
+                    "transcode": transcode_phase(workdir)}
+        interop_phase()
+        launches["benchmarks"] = benchmarks_phase()
+        trace_phase(rng, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    print(f"tools phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def run_port_bench(card: str) -> None:
     """The port bench's ``main()`` once at its full size; its JSON line
     goes out prefixed ``BENCH``."""
@@ -1662,7 +1914,7 @@ def main() -> int:
     check(all(n > 0 for n in long_launches.values()),
           "a lifting pass never took its long-line route")
     for r in rows:
-        print(json.dumps(r))
+        print("BENCH|" + json.dumps(r))
 
     host_build.join()
     print(f"native host library ready after "
@@ -1671,6 +1923,7 @@ def main() -> int:
     families = families_phase(rng, dev, card)
     launches.update(jpeg_phase(rng, dev, card))
     mesh_launches = mesh_phase(rng, dev, card, cards)
+    tools_launches = tools_phase(rng, dev)
 
     times = time_kernels(dev, rng, qt)
     long_times = time_long_route()
@@ -1699,6 +1952,12 @@ def main() -> int:
                 "frames": B}
             kernels[-1]["mesh_launches"] = {
                 way: mesh_launches[way][name] for way in mesh_launches}
+        kernels[-1]["tools_launches"] = {
+            "fuzz": tools_launches["fuzz"][name],
+            "transcode": tools_launches["transcode"][name],
+            "benchmarks": {k[:-len(name) - 1]: v for k, v in
+                           tools_launches["benchmarks"].items()
+                           if k.endswith(name)}}
     print(card)
     print(json.dumps({"kernels": kernels, "gpu": card}))
     print(json.dumps({"ok": True, "device": {

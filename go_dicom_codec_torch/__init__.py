@@ -23,7 +23,11 @@ Layout:
                     half, copied byte for byte from the reference (the
                     native library of T1/T2, scans and PackBits is built
                     with g++ at first use).
-  - ``tools/``      the port bench (``tools.bench``) and the device bench.
+  - ``tools/``      the port bench (``tools.bench``), the device bench, and
+                    the reference's command-line tools (fuzz, transcode,
+                    interop, benchmarks, perf_check, foreign_ab), each with
+                    ``--device`` (default cuda:0) and ``--engine``.
+  - ``testdata``    the hand-packed J2K stream generators, a copy.
 
 Every kernel wrapper launches its kernel for a CUDA tensor and runs the
 plain version for a CPU tensor; any other device raises. Nothing picks a

@@ -81,9 +81,11 @@ def encode(pixels: bytes | np.ndarray, width: int, height: int,
     Extended 12-bit builds optimal tables (sequential12.go:127-164).
 
     The DCT runs native first, as the reference's: the fused native gray
-    path, then the native DCT a plane; only without the native library
-    does it take ``device`` (the islow forward kernel on a GPU), or the
-    numpy mirror without a device or on the "host" engine.
+    path, then the native DCT a plane; without the native library it takes
+    ``device`` (the islow forward kernel on a GPU), or the numpy mirror
+    without a device or on the "host" engine. The "device" engine with a
+    device skips the native lanes and takes ``device`` always, as it does
+    in the J2K encoder; every lane writes the same bytes.
     """
     if width <= 0 or height <= 0:
         raise UnsupportedFormatError("invalid dimensions")
@@ -107,11 +109,12 @@ def encode(pixels: bytes | np.ndarray, width: int, height: int,
 
     level = 1 << (precision - 1)
     plane_tables = [0] if components == 1 else [0, 1, 1]
+    native_first = device is None or check_engine(engine) != "device"
 
     # fused native fast path: gray + standard K.3 tables (the default
     # baseline configuration) runs DCT+quant+Huffman in ONE native call
     # per frame — coefficient blocks never leave L1
-    if (components == 1 and precision <= 8
+    if (native_first and components == 1 and precision <= 8
             and (optimize_huffman is None or optimize_huffman is False)):
         from ..native import jpg_encode_frame_native
         plane = (arr[:, :, 0] if isinstance(pixels,
@@ -137,6 +140,7 @@ def encode(pixels: bytes | np.ndarray, width: int, height: int,
         ycc = rgb_to_ycbcr_np(arr)
         planes_np = [ycc[:, :, i] for i in range(3)]
     native_zz = [jpg_fdct_quant_native(p, qtables[t], level)
+                 if native_first else None
                  for p, t in zip(planes_np, plane_tables)]
     if all(z is not None for z in native_zz):
         comp_zz = [z.reshape(-1, 64) for z in native_zz]
@@ -150,8 +154,8 @@ def encode(pixels: bytes | np.ndarray, width: int, height: int,
             else:
                 from ..ops.jpeg_islow import fdct_islow
 
-                zz = fdct_islow(torch.as_tensor(np.ascontiguousarray(p),
-                                                device=device),
+                # a copy: the frame's bytes are read-only
+                zz = fdct_islow(torch.as_tensor(np.array(p), device=device),
                                 qtables[t], level).cpu().numpy()
             comp_zz.append(zz.reshape(-1, 64))
 

@@ -1,5 +1,6 @@
-"""Device bench of the port: the J2K lossless transform, the fused DCT and
-the JPEG codecs' islow DCT stages.
+"""Device bench of the port: the J2K lossless transform, the fused DCT,
+the JPEG codecs' islow DCT stages, the 9/7 lossy stages and the color
+transforms.
 
 Counterpart of part of ``go_dicom_codec_tpu/tools/device_bench.py`` and
 of ``bench.py:47-98``. Rows:
@@ -20,11 +21,20 @@ of ``bench.py:47-98``. Rows:
     pipelined encode's chunk);
   - ``idct8x8_dequant``: its inverse, int32 zigzag coefficients → dequant +
     islow IDCT + shift + clamp, uint16 samples (the .51 decode);
+  - ``dwt97_deadzone_quant``: float32 samples → 5-level 9/7 → deadzone
+    quant with one representative step (per-band slicing is a host-side
+    gather; the arithmetic is the same), the lossy encode stage;
+  - ``idwt97_dequant``: its inverse, dequant multiply → inverse 9/7;
+  - ``rct_forward``: the reversible color transform of int32 (x, x+1, x+2);
+  - ``ict_forward``: the irreversible one of float32 (x, x+1, x+2);
   - ``xplus1_ceiling``: ``x + 1``, the memory-bound ceiling of this shape.
 
-Each row runs in the kernel lane (the hand-written kernels: one launch of
-the fused forward stage for every forward 5/3, of the fused inverse stage
-for every inverse) and the plain lane (the same step in plain torch),
+The four 9/7 and color rows are the reference's arithmetic
+(``go_dicom_codec_tpu/tools/device_bench.py``) in plain torch: no
+hand-written kernel computes them. Each other row runs in the kernel lane
+(the hand-written kernels: one launch of the fused forward stage for every
+forward 5/3, of the fused inverse stage for every inverse) and the plain
+lane (the same step in plain torch),
 except the ceiling, which is plain torch only; the two stage rows also run
 the per-pass lane (torch widen and shift, two lifting-pass launches a
 level, torch epilogue: what lines too long for shared memory take); the
@@ -94,7 +104,9 @@ from ..ops import dwt53
 from ..ops import j2k_inv_stage as istage
 from ..ops.j2k_fwd_stage import (_epilogue, _shifted, fwd_stage,
                                  fwd_stage_plain)
-from ..ops.mct import dc_level_shift
+from ..codecs.j2k_quant import step_sizes_97
+from ..ops.dwt97 import fwd97_multilevel, inv97_multilevel
+from ..ops.mct import dc_level_shift, ict_forward, rct_forward
 from ..pipeline import _pipeline_device_stage_rgb
 
 LEVELS = 5
@@ -109,6 +121,9 @@ LANES = {"kernel": (fwd53_multilevel_, inv53_multilevel_, fdct8x8_quant),
 # frames with a side too long for shared memory: along rows, along columns
 LONG_SHAPES = ((2, 16, 65535), (2, 65535, 16))
 JPEG_LEVEL = 2048  # the islow rows' 12-bit profile, as the reference's
+# the 9/7 rows' one deadzone step: the first band's at quality 85, in
+# 12-bit units, a float32 value as the reference's
+STEP_97 = float(np.float32(step_sizes_97(LEVELS, 85)[0] * 4096))
 
 
 def card_info() -> str:
@@ -150,6 +165,27 @@ def idwt53(q: torch.Tensor, lane: str = "kernel") -> torch.Tensor:
     5/3, unshift, clip to 16 bits)."""
     stage = istage.inv_stage if lane == "kernel" else istage.inv_stage_plain
     return stage(q * 2, LEVELS, bits=16, epilogue="narrow")
+
+
+def dwt97_deadzone_quant(x: torch.Tensor) -> torch.Tensor:
+    """float32 [B, H, W] → 5-level 9/7 → sign(c) · floor(|c| / step)."""
+    c = fwd97_multilevel(x, LEVELS)
+    return torch.sign(c) * torch.floor(c.abs() / STEP_97)
+
+
+def idwt97_dequant(q: torch.Tensor) -> torch.Tensor:
+    """Quantized float32 [B, H, W] → × step → 5-level inverse 9/7."""
+    return inv97_multilevel(q * STEP_97, LEVELS)
+
+
+def rct_step(x: torch.Tensor):
+    """The RCT of (x, x + 1, x + 2): (Y, U, V)."""
+    return rct_forward(x, x + 1, x + 2)
+
+
+def ict_step(x: torch.Tensor):
+    """The ICT of float32 (x, x + 1, x + 2): (Y, Cb, Cr)."""
+    return ict_forward(x, x + 1.0, x + 2.0)
 
 
 def time_ms(fn, iters: int = 10) -> tuple:
@@ -291,6 +327,17 @@ def _steps(x: torch.Tensor, qt: torch.Tensor) -> dict:
                 for lane in LANES}}
 
 
+def _plain_steps(x: torch.Tensor) -> dict:
+    """The 9/7 and color rows, plain torch only: {row: {"plain": step}}."""
+    xf = x.to(torch.float32)
+    q = dwt97_deadzone_quant(xf)
+    return {"dwt97_deadzone_quant": {"plain": lambda: dwt97_deadzone_quant(
+                xf)},
+            "idwt97_dequant": {"plain": lambda: idwt97_dequant(q)},
+            "rct_forward": {"plain": lambda: rct_step(x)},
+            "ict_forward": {"plain": lambda: ict_step(xf)}}
+
+
 def run_bench(batch: int = 32, height: int = 512, width: int = 512,
               iters: int = 10, seed: int = 0, card: str = "") -> list:
     """Measure every row and lane on CUDA device 0; returns the rows."""
@@ -308,7 +355,8 @@ def run_bench(batch: int = 32, height: int = 512, width: int = 512,
 
     stages = {name: lanes for name, (lanes, _) in
               {**_stage_steps(x), **_jpeg_steps(x)}.items()}
-    for name, lanes in {**_steps(x, qt), **stages}.items():
+    for name, lanes in {**_steps(x, qt), **stages,
+                        **_plain_steps(x)}.items():
         for lane, fn in lanes.items():  # the lanes of a row run back to back
             row(name, lane, fn)
     row("xplus1_ceiling", "plain", lambda: x + 1)

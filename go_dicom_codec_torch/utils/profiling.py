@@ -1,8 +1,9 @@
-"""Per-stage timing.
+"""Per-stage timing + the torch profiler hook.
 
-Copy of ``go_dicom_codec_tpu/utils/profiling.py`` without its
-``jax_trace`` hook, which imports jax: a lightweight stage timer usable
-around the device/host pipeline stages, and the one-off event log.
+Copy of ``go_dicom_codec_tpu/utils/profiling.py`` with ``torch_trace`` in
+place of its ``jax_trace`` hook: a lightweight stage timer usable around
+the device/host pipeline stages, the one-off event log, and a context
+manager that drives torch.profiler for GPU traces.
 """
 
 from __future__ import annotations
@@ -73,3 +74,19 @@ def maybe_stage(name: str) -> Iterator[None]:
         with GLOBAL_TIMER.stage(name):
             yield
 
+
+
+@contextlib.contextmanager
+def torch_trace(log_dir: str) -> Iterator[None]:
+    """Capture a torch.profiler trace, with the card's kernels when CUDA
+    is available, as a Chrome trace in ``log_dir`` (TensorBoard's
+    ``*.pt.trace.json``, viewable in Perfetto)."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
+        yield

@@ -33,10 +33,11 @@ VERBATIM = (
     "ops/lossless_predict.py",
     "utils/__init__.py", "utils/npbits.py",
     "native/__init__.py", "native/ebcot_native.cpp",
+    "testdata.py",
 )
 
 # the port's files whose namesakes differ: rewritten in torch, or (the
-# profiling module) a copy less its jax trace hook
+# profiling module) a copy with a torch trace hook in place of the jax one
 PORTED = (
     "__init__.py", "pipeline.py", "codecs/__init__.py",
     "codecs/jpeg2000.py", "codecs/j2k_adapters.py", "codecs/htj2k.py",
@@ -47,6 +48,8 @@ PORTED = (
     "ops/planes.py",
     "parallel/__init__.py", "parallel/mesh.py",
     "tools/__init__.py", "tools/device_bench.py", "tools/multiproc_dryrun.py",
+    "tools/transcode.py", "tools/fuzz.py", "tools/interop.py",
+    "tools/benchmarks.py", "tools/perf_check.py", "tools/foreign_ab.py",
 )
 
 

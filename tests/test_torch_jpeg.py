@@ -8,8 +8,9 @@ multi-frame and 8-bit gray. ``encode_frames_pipelined_jpeg`` must equal
 the reference's at 8 and 12 bits on both engines, over several chunks; a
 progressive stream made by PIL decodes through the port's .50 as through
 the reference's; a refused kernel launch leaves ``codec.decode`` and the
-pipelined encode as ``KernelLaunchError``, past the progressive retry.
-Tolerance: 0.
+pipelined encode as ``KernelLaunchError``, past the progressive retry;
+the byte-level encode's engine rule ("device" takes the islow stage even
+where the native library is built). Tolerance: 0.
 """
 
 import io
@@ -189,6 +190,30 @@ def test_idct_engine_rule(monkeypatch):
     monkeypatch.setattr(native, "jpg_idct_native", lambda *a: None)
     assert np.array_equal(jpeg_common.idct_and_assemble(
         cf, q, 8, 1, 1, 1, 1, 13, 20), want)
+
+
+@pytest.mark.parametrize("components,precision", ((1, 8), (3, 8), (1, 12)))
+def test_encode_engine_rule(components, precision, monkeypatch):
+    """The byte-level encode takes the native DCT without a device, on
+    "host" and on "auto"; on "device" the islow forward stage, one call a
+    plane, even where the native library is built (before, "device" never
+    reached the kernel from a single-frame encode); every lane writes the
+    reference's bytes."""
+    from go_dicom_codec_torch import native
+
+    assert native.get_lib() is not None
+    rng = np.random.default_rng(4)
+    frame = rng.integers(0, 1 << precision, (21, 30, components))
+    px = frame.astype(np.uint8 if precision == 8 else "<u2").tobytes()
+    sof = {"sof_marker": 0xC1, "precision": 12} if precision == 12 else {}
+    want = ref.codecs.jpeg_baseline.encode(px, 30, 21, components, 90, **sof)
+    calls = _count(monkeypatch, jpeg_islow, "fdct_islow")
+    for device, engine, n in ((None, "device", 0), (CPU, "host", 0),
+                              (CPU, "auto", 0), (CPU, "device", components)):
+        got = jpeg_baseline.encode(px, 30, 21, components, 90, **sof,
+                                   device=device, engine=engine)
+        assert got == want and len(calls) == n, (device, engine)
+        calls.clear()
 
 
 def test_codecs_hold_device_and_engine():

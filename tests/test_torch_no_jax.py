@@ -8,8 +8,9 @@ the device stages (the encode stages, the decode stage and the inverse
 stage under it), the device bench, encode and decode through the port's
 codec registry (.90, .91, .80, .70, .201 and .5 on both engines, .50 and
 .51 on the device engine, with the islow stages under them), a 2-shard
-sharded encode and decode (parallel/mesh.py) and the port bench at a tiny
-size.
+sharded encode and decode (parallel/mesh.py), the tools (5 fuzz trials,
+the .npy → j2k → htj2k → jls → npy transcode chain, the clinical .90
+interop row in process) and the port bench at a tiny size.
 """
 
 import subprocess
@@ -126,6 +127,31 @@ streams = encode_frames_sharded(frames, bit_depth=12, levels=3, mesh=mesh)
 assert len(streams) == 3
 got = decode_frames_sharded(streams, mesh=mesh)
 assert all(np.array_equal(g[..., 0], f) for g, f in zip(got, frames))
+
+# the tools: 5 fuzz trials, one transcode chain, one interop row in
+# process
+import contextlib, io, os, tempfile
+from go_dicom_codec_torch.tools import fuzz, interop, transcode
+with contextlib.redirect_stdout(io.StringIO()):
+    assert fuzz.main(["--trials", "5", "--device", "cpu",
+                      "--engine", "device"]) == 0
+with tempfile.TemporaryDirectory() as tmp:
+    buf = io.BytesIO()
+    np.save(buf, frames[0].astype("<u2"))
+    cur = os.path.join(tmp, "in.npy")
+    open(cur, "wb").write(buf.getvalue())
+    for i, target in enumerate(("j2k", "htj2k", "jls", "npy")):
+        nxt = os.path.join(tmp, f"{i}.{target}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert transcode.main([cur, nxt, "--to", target, "--bits", "12",
+                                   "--device", "cpu"]) == 0
+        cur = nxt
+    back = np.load(io.BytesIO(open(cur, "rb").read()))
+    assert np.array_equal(back, frames[0])
+row = interop.FORMAT_DEFINITIONS[8]
+ok = interop.run_format(row + (96, 80, 7, "self", "clinical", None, "cpu",
+                               "device"))
+assert ok[1] and ok[0] == "jpeg2000-lossless", ok
 
 # the port bench at a tiny size
 from go_dicom_codec_torch.tools import bench
