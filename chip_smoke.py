@@ -15,12 +15,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    layer; saturating float → int32 casts (the DCT on INT32_MAX and
    INT32_MIN planes, ``quantize``, the rounding helper, the 9/7 decode
    stage on NaN, ±inf and ±3e9) equal to the CPU's; the fused forward
-   stage bit-exact at [32, 512, 512] uint16 in all three epilogues; the fused
-   inverse stage bit-exact at [32, 1, 512, 512] int16 → uint16 and
-   [8, 3, 512, 512] with the RCT, on int16 and int32 input, in all three
-   epilogues; the fused forward and inverse 5/3, the forward and inverse
-   lifting passes bit-exact at [32, 512, 512] × 5 levels and on small odd
-   cases at every origin, both stages' epilogues on those too; the islow
+   stage bit-exact at [32, 512, 512] uint16 and [8, 3, 512, 512] uint8
+   with the RCT fused, in all three epilogues; the fused inverse stage
+   bit-exact at [32, 1, 512, 512] int16 → uint16 and [8, 3, 512, 512] with
+   the RCT, on int16 and int32 input, in all three epilogues; the fused
+   forward and inverse 5/3, the forward and inverse lifting passes
+   bit-exact at [32, 512, 512] × 5 levels and on the stages' launch-model
+   matrix (odd shapes and every shape up to 8×8 at every origin and
+   levels 0-6 at the card's tile side of 64; odd shapes, rows of whole
+   16-byte vectors and one-sample windows at tiles of 8, with head budgets
+   of none, 64 and 4096 samples), both stages' epilogues (the forward's
+   also with the RCT fused) on those too; the islow
    forward and inverse kernels bit-exact (``compare_islow``) at
    [32, 512, 512] and ragged shapes, 8-bit and 12-bit profiles, qualities
    1, 50, 90 and 100, 16-bit samples under the 12-bit profile (the int32
@@ -40,8 +45,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    must equal the native host lane's byte for byte and decode bit-exact,
    the lossy decode lie within ±1 of the host lane's; the fused forward
    stage must launch once per encode chunk and no forward lifting pass
-   beside it, the fused inverse stage once per decode chunk and no inverse
-   lifting pass, and the pipelines must have run on the device engine
+   beside it (an RGB chunk's stage is one device operation, and no RGB
+   call runs the plain-torch RCT), the fused inverse stage once per decode
+   chunk and no inverse lifting pass, and the pipelines must have run on
+   the device engine
    (their ``pipeline.*`` events; the adapters' scalar fallback would hide
    a failure), and no call may launch the float DCT. Two gray 16 × 60001
    frames round-trip through .90 the same way, through the lifting
@@ -107,13 +114,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    engine) and its pipeline row at 8 frames, with ``BENCH|`` lines naming
    the card; ``tools.perf_check --emit-json`` at 256² (printed, no gate);
    ``utils.profiling.torch_trace`` around a registry .90 encode of 32
-   frames, whose Chrome trace names the forward stage's kernel;
+   frames between eight torch launches before it and eight after, whose
+   Chrome trace names the forward stage's kernel (the counts printed:
+   torch.profiler drops some kernel events);
 10. prints the device bench rows (``BENCH|``, the 9/7 and color rows
    among them), one JSON object of kernel results
-   (each with its event, device and host ms; the DCT's with an x+1 copy
+   (each with its event, device and host ms and device operations a
+   call, timed once the main path has run, before the codec phase: the
+   device ms is null where no profile held every launch, and a fused
+   stage call must be one device operation; the DCT's with an x+1 copy
    of its input timed beside it; the islow kernels' launches from the
    JPEG phase, with the forward of 12-bit samples and the inverse of one
-   frame timed beside them; the lifting passes' with a
+   frame timed beside them; the forward stage's with its RGB narrow stage
+   beside it; the lifting passes' with a
    ``long_route`` entry: its launches in the main path and the level-1
    pass of [2, 16, 65535] and [2, 65535, 16] timed against its plain
    version and bound; the fused stages' ``mesh_launches``; every kernel's
@@ -124,6 +137,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 Any failure raises, exits non-zero and prints no ok line. Imports no JAX.
 """
 
+import contextlib
 import json
 import statistics
 import sys
@@ -143,6 +157,7 @@ from go_dicom_codec_torch.ops.dct8x8 import (LUMA_QUANT, _basis,
                                             decode_zigzag_to_plane,
                                             encode_plane_to_zigzag, quantize,
                                             scale_quant_table, to_blocks)
+from go_dicom_codec_torch.ops import dwt53
 from go_dicom_codec_torch.ops.dwt53 import (_level_passes, _level_windows,
                                             fwd53_multilevel_,
                                             fwd53_multilevel_plain_,
@@ -165,6 +180,7 @@ SEED = 0
 B, H, W, LEVELS = 32, 512, 512, 5
 RGB_FRAMES = 8
 ROUNDS = 5
+TRACE_XPLUS1 = 8  # torch launches before and after the traced encode
 DCT_SHIFT = 2048
 SOURCES = {
     "fdct8x8_quant": ("cuda", "go_dicom_codec_torch/csrc/fdct8x8_quant.cu",
@@ -174,7 +190,7 @@ SOURCES = {
     "dwt53_inv_pass": ("cuda", "go_dicom_codec_torch/csrc/dwt53.cu",
                        "go_dicom_codec_tpu/ops/dwt53.py:112"),
     "j2k_fwd_stage": ("cuda", "go_dicom_codec_torch/csrc/j2k_fwd_stage.cu",
-                      "go_dicom_codec_tpu/pipeline.py:43"),
+                      "go_dicom_codec_tpu/pipeline.py:43 (RGB: :56, :368)"),
     "j2k_inv_stage": ("cuda", "go_dicom_codec_torch/csrc/j2k_inv_stage.cu",
                       "go_dicom_codec_tpu/pipeline.py:435"),
     "jpeg_fdct_islow": ("cuda", "go_dicom_codec_torch/csrc/jpeg_islow.cu",
@@ -349,9 +365,10 @@ def compare_dwt(x: torch.Tensor, levels: int, x0: int = 0,
     """The fused forward stage and the forward lifting passes against the
     plain lane, the fused inverse stage and the inverse lifting passes
     against the plain inverse, and the stages' epilogues against their
-    plain versions (the inverse's with the planes as the components of one
-    frame, RCT on, int16 and int32 input); all bit-exact. Returns each
-    kernel's max |d|."""
+    plain versions (the forward's also with the RCT fused, on the first
+    three planes as one frame; the inverse's with the planes as the
+    components of one frame, RCT on, int16 and int32 input); all
+    bit-exact. Returns each kernel's max |d|."""
     fwd_p = fwd53_multilevel_plain_(x.clone(), levels, x0, y0)
     errs = {"j2k_fwd_stage": max_abs_diff(
                 fwd53_multilevel_(x.clone(), levels, x0, y0), fwd_p),
@@ -361,11 +378,13 @@ def compare_dwt(x: torch.Tensor, levels: int, x0: int = 0,
                 inv53_multilevel_(fwd_p.clone(), levels, x0, y0), x),
             "dwt53_inv_pass": max_abs_diff(
                 inv53_passes_(fwd_p.clone(), levels, x0, y0), x)}
-    for epilogue in ("narrow", "stats"):
-        got = fwd_stage(x, 7, levels, x0, y0, epilogue, 16)
-        want = fwd_stage_plain(x, 7, levels, x0, y0, epilogue, 16)
-        errs["j2k_fwd_stage"] = max(errs["j2k_fwd_stage"], *(
-            max_abs_diff(g, w) for g, w in zip(got, want)))
+    rgb = x[None, :3] if x.shape[0] >= 3 else None
+    for src, mct in ((x, False), (rgb, True)):
+        for epilogue in ("narrow", "stats") if src is not None else ():
+            got = fwd_stage(src, 7, levels, x0, y0, epilogue, 16, mct)
+            want = fwd_stage_plain(src, 7, levels, x0, y0, epilogue, 16, mct)
+            errs["j2k_fwd_stage"] = max(errs["j2k_fwd_stage"], *(
+                max_abs_diff(g, w) for g, w in zip(got, want)))
     packed = fwd_p[None]
     for src in (packed, packed.clamp(-32768, 32767).to(torch.int16)):
         for epilogue in ("pixels", "narrow"):
@@ -379,19 +398,22 @@ def compare_dwt(x: torch.Tensor, levels: int, x0: int = 0,
     return errs
 
 
-def compare_stage(x16: torch.Tensor) -> int:
-    """The fused forward stage of the pipelines' uint16 frames against its
-    plain version, in all three epilogues; bit-exact."""
+def compare_stage(x16: torch.Tensor, rgb: torch.Tensor) -> int:
+    """The fused forward stage of the pipelines' uint16 gray frames and of
+    uint8 RGB frames (DC shift and RCT fused) against its plain version,
+    in all three epilogues; bit-exact."""
     err = 0
-    for epilogue in ("coeffs", "narrow", "stats"):
-        got = fwd_stage(x16, 2048, LEVELS, epilogue=epilogue)
-        want = fwd_stage_plain(x16, 2048, LEVELS, epilogue=epilogue)
-        if epilogue == "coeffs":
-            got, want = (got,), (want,)
-        err = max(err, *(max_abs_diff(g, w) for g, w in zip(got, want)))
+    for x, shift, mct in ((x16, 2048, False), (rgb, 128, True)):
+        for epilogue in ("coeffs", "narrow", "stats"):
+            got = fwd_stage(x, shift, LEVELS, epilogue=epilogue, mct=mct)
+            want = fwd_stage_plain(x, shift, LEVELS, epilogue=epilogue,
+                                   mct=mct)
+            if epilogue == "coeffs":
+                got, want = (got,), (want,)
+            err = max(err, *(max_abs_diff(g, w) for g, w in zip(got, want)))
     check(err == 0, f"j2k_fwd_stage differs from its plain version: {err}")
-    print(f"j2k_fwd_stage == plain at {tuple(x16.shape)} uint16, "
-          f"coeffs, narrow and stats")
+    print(f"j2k_fwd_stage == plain at {tuple(x16.shape)} uint16 and "
+          f"{tuple(rgb.shape)} uint8 RGB, coeffs, narrow and stats")
     return err
 
 
@@ -418,20 +440,51 @@ def compare_inv_stage(coeffs: torch.Tensor) -> int:
     return err
 
 
+def stage_tables(tile: int, head: int) -> None:
+    """Set the fused stages' tile side and the inverse stage's head budget
+    (ops/dwt53.py); the level tables are built anew."""
+    dwt53._TILE, dwt53._HEAD_SAMPLES = tile, head
+    dwt53.fwd_schedule.cache_clear()
+    dwt53.inv_schedule.cache_clear()
+
+
 def compare_dwt_all(rng, dev) -> dict:
+    """``compare_dwt`` over the launch models' matrix (tests/
+    test_torch_j2k_*_stage.py): [B, H, W] at 5 levels; odd shapes and
+    every shape up to 8×8 at every origin and levels 0-6, at the card's
+    tile side of 64; then odd shapes, shapes whose rows are whole 16-byte
+    vectors, and one-sample windows at tiles of 8 samples (many tiles,
+    partial ones, grid levels), at head budgets of none, 64 and 4096
+    samples."""
     x = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W), dtype=np.int32),
                         device=dev)
     cases = [(dc_level_shift(x, 16, False), LEVELS, 0, 0)]
     odd = torch.as_tensor(rng.integers(-4096, 4096, (3, 61, 37),
                                        dtype=np.int32), device=dev)
-    for x0, y0 in ((0, 0), (1, 0), (0, 1), (1, 1)):
-        for levels in range(1, 7):
+    wide = torch.as_tensor(rng.integers(-4096, 4096, (3, 40, 48),
+                                        dtype=np.int32), device=dev)
+    origins = ((0, 0), (1, 0), (0, 1), (1, 1))
+    for x0, y0 in origins:
+        for levels in range(0, 7):
             cases.append((odd, levels, x0, y0))
             cases += [(odd[:2, :h, :w].contiguous(), levels, x0, y0)
                       for h in range(1, 9) for w in range(1, 9)]
     errs = [compare_dwt(*case) for case in cases]
+    n = len(cases)
+    try:
+        for head in (0, 64, 64 * 64):
+            stage_tables(8, head)
+            small = [odd, wide, wide[:1, :16, :16].contiguous(),
+                     odd[:2, :1, :5].contiguous(),
+                     odd[:2, :6, :1].contiguous()]
+            for x0, y0 in origins:
+                for levels in range(0, 7):
+                    errs += [compare_dwt(c, levels, x0, y0) for c in small]
+                    n += len(small)
+    finally:
+        stage_tables(64, 64 * 64)
     print(f"5/3 fused stages, lifting passes and plain lane agree on "
-          f"{len(cases)} cases")
+          f"{n} cases (tiles of 64 and 8, head budgets none, 64 and 4096)")
     return {k: max(e[k] for e in errs) for k in errs[0]}
 
 
@@ -594,10 +647,14 @@ def timing(fn, n: int = 1) -> dict:
     """One call of ``fn`` over its ``n`` launches: the CUDA-event time of
     ten calls in a row (``ms``), the host time to issue one call
     (``host_ms``) and the device time torch.profiler records
-    (``device_ms``), each divided by ``n``."""
+    (``device_ms``), each divided by ``n``, and the device operations a
+    call (``device_ops``). A profile that misses some of the ``n``
+    launches is taken again; if none is whole, ``device_ms`` is None."""
     ms, host = device_bench.time_ms(fn)
-    dev_ms = device_bench.device_ms(fn)[0]
-    return {"ms": ms / n, "host_ms": host / n, "device_ms": dev_ms / n}
+    dev_ms, _, ops = device_bench.device_ms(fn, launches=n)
+    return {"ms": ms / n, "host_ms": host / n,
+            "device_ms": None if dev_ms is None else dev_ms / n,
+            "device_ops": ops}
 
 
 def time_kernels(dev, rng, qt) -> dict:
@@ -607,7 +664,9 @@ def time_kernels(dev, rng, qt) -> dict:
     launches (each pass reads and writes its window once, ~4 operations a
     sample). The fused forward stage: the pipelines' narrow stage of
     [B, H, W] uint16 (reads 2 bytes and writes 2 a sample; ~4 operations
-    a sample and pass, 3 in the epilogue). The fused inverse stage: the
+    a sample and pass, 3 in the epilogue), and beside it the RGB narrow
+    stage of [RGB_FRAMES, 3, H, W] uint8 (reads 1 byte and writes 2 a
+    sample; the RCT ~5 operations a sample). The fused inverse stage: the
     pipeline's narrow decode stage of [B, 1, H, W] int16 coefficients (2
     bytes in and 2 out a sample; ~4 operations a sample and pass, 4 in the
     epilogue). The DCT: [B, H, W] int32 in and out, 35 operations a
@@ -641,6 +700,14 @@ def time_kernels(dev, rng, qt) -> dict:
         "plain_ms": device_bench.time_ms(lambda: fwd_stage_plain(
             x16, 2048, LEVELS, epilogue="narrow"))[0],
         **bound(4 * x16.numel() + 4, 4 * window + 3 * x16.numel())}
+    rgb = torch.as_tensor(rng.integers(0, 256, (RGB_FRAMES, 3, H, W))
+                          .astype(np.uint8), device=dev)
+    t["j2k_fwd_stage"]["rgb"] = {
+        **timing(lambda: P._pipeline_device_stage_rgb(rgb, 8, LEVELS, True)),
+        "plain_ms": device_bench.time_ms(lambda: fwd_stage_plain(
+            rgb, 128, LEVELS, epilogue="narrow", mct=True))[0],
+        **bound(3 * rgb.numel() + 4,
+                4 * window * rgb.numel() // x16.numel() + 5 * rgb.numel())}
     pk = fwd_stage(x16, 2048, LEVELS, epilogue="narrow")[0][:, None]
     args = (LEVELS, 0, 0, 12, False, False, "narrow")
     t["j2k_inv_stage"] = {
@@ -648,6 +715,10 @@ def time_kernels(dev, rng, qt) -> dict:
         "plain_ms": device_bench.time_ms(
             lambda: inv_stage_plain(pk, *args))[0],
         **bound(4 * pk.numel(), 4 * window + 4 * pk.numel())}
+    for tk in (t["j2k_fwd_stage"], t["j2k_fwd_stage"]["rgb"],
+               t["j2k_inv_stage"]):
+        check(tk["device_ms"] is None or tk["device_ops"] == 1,
+              f"a fused stage call ran {tk['device_ops']} device operations")
     x = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W), dtype=np.int32),
                         device=dev)
     copy = timing(lambda: x + 1)
@@ -834,9 +905,72 @@ def device_share(label: str, call) -> None:
     call()
     wall = timed(call)[1]
     dev_ms, top, ops = device_bench.device_ms(call, iters=1)
-    print(f"{label}: wall {wall * 1e3:.1f} ms, device {dev_ms:.3f} ms in "
-          f"{ops:.0f} device operations, device share "
-          f"{dev_ms / (wall * 1e3):.4f}; top kernels {json.dumps(top)}")
+    share = None if dev_ms is None else dev_ms / (wall * 1e3)
+    print(f"{label}: wall {wall * 1e3:.1f} ms, device {dev_ms} ms in "
+          f"{ops:.0f} device operations, device share {share}; "
+          f"top kernels {json.dumps(top)}")
+
+
+@contextlib.contextmanager
+def counted_rct():
+    """Counts the calls of the plain-torch forward RCT (ops/mct.py and its
+    imports in the forward stage's plain lane and the scalar codec) inside
+    the ``with``: {"calls": n}."""
+    from go_dicom_codec_torch.codecs import jpeg2000
+    from go_dicom_codec_torch.ops import j2k_fwd_stage, mct
+
+    count = {"calls": 0}
+    saved = [(mod, mod.rct_forward) for mod in (mct, j2k_fwd_stage,
+                                                 jpeg2000)]
+
+    def rct(*args):
+        count["calls"] += 1
+        return saved[0][1](*args)
+    for mod, _ in saved:
+        mod.rct_forward = rct
+    try:
+        yield count
+    finally:
+        for mod, fn in saved:
+            mod.rct_forward = fn
+
+
+def rgb_chunk_ops(registry, frames: np.ndarray, bits: int, chunks: int,
+                  dev) -> None:
+    """The RGB encode's device work: one registry encode of ``frames``
+    runs one ``j2k_fwd_stage`` launch a chunk and no other kernel (the
+    profiler may drop some events, C5, so only their names are held); one
+    chunk as the pipeline uploads it ([F, 3, H, W] 8-bit samples) is
+    exactly one device operation, the forward stage's kernel."""
+    info, src = pixel_data(frames, bits, True)
+    codec = registry.get_codec(gdc.uids.JPEG_2000_LOSSLESS)
+    _kernels.reset_launch_counts()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        codec.encode(src, gdc.MemoryPixelData(info=info, encapsulated=True))
+        torch.cuda.synchronize()
+    launched = _kernels.launch_counts["j2k_fwd_stage"]
+    kernels = {e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))}
+    check(launched == chunks and kernels
+          and all("fwd_stage_kernel" in k for k in kernels),
+          f"an RGB encode ran {launched} stage launches for {chunks} "
+          f"chunks and the kernels {kernels}")
+    size = -(-len(frames) // chunks)
+    x = torch.as_tensor(np.ascontiguousarray(np.moveaxis(
+        frames[:size], -1, 1).astype(sample_dtype(bits))), device=dev)
+    stage = lambda: P._pipeline_device_stage_rgb(x, bits, LEVELS, True)
+    # one kind of device operation, at most one a call: torch.profiler
+    # may drop an event of the ten calls (C5), never add one
+    ms, top, ops = device_bench.device_ms(stage)
+    check(len(top) == 1 and "fwd_stage_kernel" in top[0][0] and ops <= 1,
+          f"an RGB encode chunk ran {ops} device operations: {top}")
+    print(f"RGB .90 encode: {launched} j2k_fwd_stage launches for {chunks} "
+          f"chunks, no other kernel; a chunk [{size}, 3, {H}, {W}] "
+          f"{x.dtype} is 1 device operation ({ops} recorded a call), "
+          f"{ms} ms")
 
 
 def codec_phase(rng, dev, card: str) -> dict:
@@ -856,8 +990,11 @@ def codec_phase(rng, dev, card: str) -> dict:
             ("rgb", gdc.uids.JPEG_2000_LOSSLESS, RGB_FRAMES, 8, True)):
         frames = (np.stack([phantom(rng, n, bits) for _ in range(3)],
                            axis=-1) if rgb else phantom(rng, n, bits))
-        streams, decoded, lc, calls, runs = registry_round_trip(
-            registry, host_registry, uid, frames, bits, rgb)
+        with counted_rct() as rcts:
+            streams, decoded, lc, calls, runs = registry_round_trip(
+                registry, host_registry, uid, frames, bits, rgb)
+        check(rcts["calls"] == 0, f"{name}: the registry ran the plain-torch "
+              f"RCT {rcts['calls']} times")
         check(runs == {"pipeline.encode": (1, "device"),
                        "pipeline.decode": (1, "device")},
               f"{name}: the pipelines did not run on the device {runs}")
@@ -879,6 +1016,8 @@ def codec_phase(rng, dev, card: str) -> dict:
               f"{name}: the decode did not run one j2k_inv_stage launch a "
               f"chunk ({dchunks}) and no inverse lifting pass")
         launches[name] = lc
+        if rgb:
+            rgb_chunk_ops(registry, frames, bits, chunks, dev)
         print(f"{name} .90 [{n}, {H}, {W}]: codestreams == host lane, "
               f"decode bit-exact; launches {json.dumps(lc)}")
         measured[name] = rates(host_checked(calls), n)
@@ -1801,10 +1940,13 @@ def benchmarks_phase() -> dict:
 
 
 def trace_phase(rng, dev, workdir: str) -> None:
-    """``torch_trace`` around one registry .90 encode of 32 gray 512²
-    frames: a Chrome trace that names the forward stage's kernel. The
-    count of its events is printed beside the launches, not held to them:
-    torch.profiler drops some device events on the card's machine."""
+    """``torch_trace`` around ``TRACE_XPLUS1`` torch ``x + 1`` launches,
+    one registry .90 encode of 32 gray 512² frames and ``TRACE_XPLUS1``
+    torch ``x * 3`` launches: a Chrome trace that names the forward
+    stage's kernel. The count of its events is printed beside the
+    launches, and beside the torch kernels' events before and after the
+    encode, not held to them: torch.profiler drops some kernel events on
+    the card's machine (PERF.md, C5)."""
     import glob
     import os
 
@@ -1813,10 +1955,16 @@ def trace_phase(rng, dev, workdir: str) -> None:
     codec = gdc.make_registry(dev).get_codec(U.JPEG_2000_LOSSLESS)
     codec.encode(src, gdc.MemoryPixelData(info=info, encapsulated=True))
     log_dir = os.path.join(workdir, "trace")
+    y = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    y.add_(1)
+    y.mul_(3)
     _kernels.reset_launch_counts()
     with profiling.torch_trace(log_dir):
+        for _ in range(TRACE_XPLUS1):
+            y.add_(1)
         codec.encode(src, gdc.MemoryPixelData(info=info, encapsulated=True))
-        torch.cuda.synchronize()
+        for _ in range(TRACE_XPLUS1):
+            y.mul_(3)
     launched = _kernels.launch_counts["j2k_fwd_stage"]
     files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
     check(len(files) == 1, f"torch_trace wrote {files}")
@@ -1824,13 +1972,18 @@ def trace_phase(rng, dev, workdir: str) -> None:
         names = [e.get("name", "") for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "kernel"]
     stage = [n for n in names if "fwd_stage_kernel" in n]
+    # torch's own kernels before the encode (add) and after it (mul)
+    before = sum("elementwise" in n and "add" in n for n in names)
+    after = sum("elementwise" in n and "Mul" in n for n in names)
     check(launched > 0 and 0 < len(stage) <= launched,
           f"the trace holds {len(stage)} forward stage kernels of "
           f"{launched} launches")
     print(f"TRACE {os.path.basename(files[0])}: {len(names)} kernel "
           f"events, {len(stage)} of them {stage[0][:60]!r}, of "
           f"{launched} j2k_fwd_stage launches in one registry .90 encode "
-          f"of {B} frames")
+          f"of {B} frames; in the same trace {before} events of "
+          f"{TRACE_XPLUS1} torch x + 1 launches before the encode and "
+          f"{after} of {TRACE_XPLUS1} x * 3 after it")
 
 
 def tools_phase(rng, dev) -> dict:
@@ -1892,8 +2045,10 @@ def main() -> int:
                         device=dev)
     errs = {"fdct8x8_quant": compare_dct(x, qt), **compare_dwt_all(rng, dev)}
     saturation(dev, qt)
+    rgb = torch.as_tensor(rng.integers(0, 256, (RGB_FRAMES, 3, H, W))
+                          .astype(np.uint8), device=dev)
     errs["j2k_fwd_stage"] = max(errs["j2k_fwd_stage"],
-                                compare_stage(x.to(torch.uint16)))
+                                compare_stage(x.to(torch.uint16), rgb))
     errs["j2k_inv_stage"] = max(errs["j2k_inv_stage"], compare_inv_stage(
         fwd_stage_plain(x, 2048, LEVELS)))
     errs.update(compare_islow(dev))
@@ -1919,14 +2074,15 @@ def main() -> int:
     host_build.join()
     print(f"native host library ready after "
           f"{time.perf_counter() - t_native:.2f} s")
+    # before the profiler-heavy phases, after which torch.profiler drops
+    # more of the kernel events the device times are read from
+    times = time_kernels(dev, np.random.default_rng(SEED), qt)
+    long_times = time_long_route()
     codec_phase(rng, dev, card)
     families = families_phase(rng, dev, card)
     launches.update(jpeg_phase(rng, dev, card))
     mesh_launches = mesh_phase(rng, dev, card, cards)
     tools_launches = tools_phase(rng, dev)
-
-    times = time_kernels(dev, rng, qt)
-    long_times = time_long_route()
     run_port_bench(card)
     ht = families["htj2k"][U.HTJ2K_LOSSLESS]
     kernels = []
@@ -1936,11 +2092,12 @@ def main() -> int:
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": errs[name], "ms": tk["ms"],
                         "device_ms": tk["device_ms"],
+                        "device_ops": tk["device_ops"],
                         "host_ms": tk["host_ms"], "plain_ms": tk["plain_ms"],
                         "bound_ms": tk["bound_ms"],
                         "bound_by": tk["bound_by"], "library_ms": None})
         for extra in ("xplus1_ms", "xplus1_device_ms", "uint16_12bit",
-                      "per_frame"):
+                      "per_frame", "rgb"):
             if extra in tk:
                 kernels[-1][extra] = tk[extra]
         if name in long_times:

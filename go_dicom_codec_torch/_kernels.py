@@ -127,10 +127,10 @@ def _load():
     lib.gdct_dwt53_long_pass.argtypes = [p, p, ll, ll, i, ll, i, ll, ll, ll,
                                          i, i, p]
     lib.gdct_fdct8x8_quant.argtypes = [p, p, p, p, ll, i, i, f, p]
-    lib.gdct_j2k_fwd_stage.argtypes = [p, i, p, i, i, i, i, p, i, i, i, p, p,
-                                       p, p, p]
+    lib.gdct_j2k_fwd_stage.argtypes = [p, i, p, p, i, i, i, i, i, i, p, i, i,
+                                       i, i, i, p, p, p, p, p]
     lib.gdct_j2k_inv_stage.argtypes = [p, i, p, p, i, i, i, i, p, i, i, i, i,
-                                       i, i, i, i, i, i, i, p]
+                                       i, i, i, i, p]
     lib.gdct_jpeg_fdct_islow.argtypes = [p, i, p, p, ll, i, i, i, p]
     lib.gdct_jpeg_idct_islow.argtypes = [p, p, i, p, ll, i, i, i, i, p]
     for fn in (lib.gdct_dwt53_fwd_pass, lib.gdct_dwt53_inv_pass,
@@ -251,75 +251,103 @@ def dwt53_pass(x: torch.Tensor, n_lines: int, line_stride: int,
 
 # dtypes the forward stage reads as they are (others are cast to int32
 # first), with their code in csrc/j2k_fwd_stage.cu
-FWD_STAGE_DTYPES = {torch.uint16: 0, torch.int16: 1, torch.int32: 2}
+FWD_STAGE_DTYPES = {torch.uint16: 0, torch.int16: 1, torch.int32: 2,
+                    torch.uint8: 3}
 FWD_STAGE_EPILOGUES = {"coeffs": 0, "narrow": 1, "stats": 2}
-STAGE_MAX_PASSES = 64   # kMaxPasses of both stages: 32 levels
+STAGE_MAX_ROWS = 64   # kMaxRows of both stages: one row a level
+STAGE_MAX_TILE = 64   # kMaxTile of csrc/lifting.cuh
+
+
+def stage_smem_bytes(tile: int, rct: bool) -> int:
+    """Shared memory of one block of a fused stage: a buffer of the tile
+    and its halo of 2, (tile + 4)² int32 words, three with the RCT."""
+    return (3 if rct else 1) * (tile + 4) ** 2 * 4
 
 
 @functools.lru_cache(maxsize=256)
-def _stage_table(schedule: tuple):
-    """The pass table as the int64 array the kernel reads, once checked."""
-    if len(schedule) > STAGE_MAX_PASSES:
-        raise KernelLaunchError(f"j2k_fwd_stage: {len(schedule)} passes")
-    for (_, _, n, _, lpb, _) in schedule:
-        if dwt53_smem_bytes(lpb, n) > SMEM_MAX_BYTES:
-            raise KernelLaunchError(f"j2k_fwd_stage: {lpb} lines of {n} "
-                                    f"samples exceed shared memory")
-    flat = [int(v) for row in schedule for v in row]
-    return (ctypes.c_longlong * max(1, len(flat)))(*flat)
+def _stage_table(name: str, schedule: tuple):
+    """A stage's level rows as the int32 array the kernel reads, once
+    checked: (tile, scratch words a plane, rows)."""
+    tile, words, rows = schedule
+    if len(rows) > STAGE_MAX_ROWS:
+        raise KernelLaunchError(f"{name}: {len(rows)} levels")
+    if not 2 <= tile <= STAGE_MAX_TILE or tile % 2:
+        raise KernelLaunchError(f"{name}: a tile of {tile} samples")
+    flat = [int(v) for row in rows for v in row]
+    if any(not -(1 << 31) <= v < (1 << 31) for v in flat + [words]):
+        raise KernelLaunchError(f"{name}: a table entry exceeds int32")
+    return (ctypes.c_int * max(1, len(flat)))(*flat)
+
+
+def _scratch(schedule, planes: int, like):
+    """The stage's int32 scratch, P × the schedule's words a plane; None
+    when the schedule needs none."""
+    words = schedule[1] * planes
+    return (torch.empty(words, dtype=torch.int32, device=like.device)
+            if words else None)
 
 
 def j2k_fwd_stage(src: torch.Tensor, coef: torch.Tensor, schedule,
                   shift: int, epilogue: str, cb: int = 0,
                   narrow: torch.Tensor = None, maxabs: torch.Tensor = None,
-                  cb_max: torch.Tensor = None,
-                  cb_bits: torch.Tensor = None) -> None:
+                  cb_max: torch.Tensor = None, cb_bits: torch.Tensor = None,
+                  comps: int = 1, mct: bool = False) -> None:
     """Launch the forward stage once: ``src`` [P, H, W] (a dtype of
-    ``FWD_STAGE_DTYPES``; may be ``coef`` itself) → widened, less
-    ``shift``, lifted through ``schedule`` into the int32 ``coef``
-    [P, H, W] → the epilogue's outputs.
+    ``FWD_STAGE_DTYPES``; never ``coef`` itself) → widened, less
+    ``shift``, the RCT of components 0-2 of each frame of ``comps`` planes
+    when ``mct`` and ``comps`` >= 3 → the levels of ``schedule`` → the
+    epilogue's outputs.
 
-    ``schedule`` is the pass table: rows of (n_lines, line_stride, n,
-    elem_stride, lines_per_block, even) in the order the passes run, every
-    line within shared memory. Epilogue "narrow" writes ``narrow`` (int16
-    [P, H, W]) and ``maxabs`` (int32, one element); "stats" writes
-    ``cb_max`` and ``cb_bits`` (int32 [P, ceil(H/cb), ceil(W/cb)]).
+    ``schedule`` is ``ops/dwt53.py:fwd_schedule``'s (tile, scratch words a
+    plane, rows). Epilogue "coeffs" writes the int32 ``coef`` [P, H, W];
+    "narrow" writes ``narrow`` (int16 [P, H, W]) and ``maxabs`` (int32, one
+    element), ``coef`` unused (may be None); "stats" writes ``coef``,
+    ``cb_max`` and ``cb_bits`` (int32 [P, ceil(H/cb), ceil(W/cb)]). The
+    levels pass their LL through an int32 scratch of P × the schedule's
+    words.
     """
-    _require(coef, torch.int32, "j2k_fwd_stage coef")
     if src.dtype not in FWD_STAGE_DTYPES:
         raise KernelLaunchError(f"j2k_fwd_stage: no route for {src.dtype}")
     _require(src, src.dtype, "j2k_fwd_stage src")
-    if src.dim() != 3 or coef.shape != src.shape or src.numel() == 0:
-        raise KernelLaunchError(f"j2k_fwd_stage: bad shapes "
-                                f"{tuple(src.shape)} → {tuple(coef.shape)}")
     if epilogue not in FWD_STAGE_EPILOGUES:
         raise KernelLaunchError(f"j2k_fwd_stage: no epilogue {epilogue!r}")
-    table = _stage_table(tuple(schedule))
+    if (src.dim() != 3 or src.numel() == 0 or comps < 1
+            or src.shape[0] % comps):
+        raise KernelLaunchError(f"j2k_fwd_stage: bad shape "
+                                f"{tuple(src.shape)} of {comps} components")
+    table = _stage_table("j2k_fwd_stage", tuple(schedule))
     p, h, w = src.shape
+    want = {}
+    if epilogue != "narrow" or coef is not None:
+        want["coef"] = (coef, torch.int32, (p, h, w))
     if epilogue == "narrow":
-        want = {"narrow": (narrow, torch.int16, (p, h, w)),
-                "maxabs": (maxabs, torch.int32, (1,))}
+        want.update(narrow=(narrow, torch.int16, (p, h, w)),
+                    maxabs=(maxabs, torch.int32, (1,)))
     elif epilogue == "stats":
         if cb < 1:
             raise KernelLaunchError(f"j2k_fwd_stage: code-block size {cb}")
         grid = (p, -(-h // cb), -(-w // cb))
-        want = {"cb_max": (cb_max, torch.int32, grid),
-                "cb_bits": (cb_bits, torch.int32, grid)}
-    else:
-        want = {}
+        want.update(cb_max=(cb_max, torch.int32, grid),
+                    cb_bits=(cb_bits, torch.int32, grid))
     for name, (t, dtype, shape) in want.items():
         _require(t, dtype, f"j2k_fwd_stage {name}")
-        if t.numel() != math.prod(shape):
+        if t.numel() != math.prod(shape) or t.device != src.device:
             raise KernelLaunchError(f"j2k_fwd_stage: {name} needs "
-                                    f"{shape}, got {tuple(t.shape)}")
+                                    f"{shape} on {src.device}, got "
+                                    f"{tuple(t.shape)} on {t.device}")
+    if coef is not None and coef.data_ptr() == src.data_ptr():
+        raise KernelLaunchError("j2k_fwd_stage: src is coef; the stage "
+                                "never writes its input")
+    scratch = _scratch(schedule, p, src)
     ptrs = [0 if t is None else t.data_ptr()
-            for t in (narrow, maxabs, cb_max, cb_bits)]
+            for t in (coef, scratch, narrow, maxabs, cb_max, cb_bits)]
     lib = _load()
     with torch.cuda.device(src.device):
         err = lib.gdct_j2k_fwd_stage(
-            src.data_ptr(), FWD_STAGE_DTYPES[src.dtype], coef.data_ptr(), p,
-            h, w, int(shift), table, len(schedule),
-            FWD_STAGE_EPILOGUES[epilogue], int(cb), *ptrs, _stream(src))
+            src.data_ptr(), FWD_STAGE_DTYPES[src.dtype], ptrs[0], ptrs[1],
+            p // comps, comps, h, w, _int32(shift), int(bool(mct)), table,
+            len(schedule[2]), schedule[0], schedule[1],
+            FWD_STAGE_EPILOGUES[epilogue], int(cb), *ptrs[2:], _stream(src))
     launch_counts["j2k_fwd_stage"] += 1
     _check(lib, err, "j2k_fwd_stage")
 
@@ -330,62 +358,34 @@ INV_STAGE_DTYPES = {torch.int16: 1, torch.int32: 2}
 INV_STAGE_EPILOGUES = {"coeffs": 0, "pixels": 1, "narrow": 2}
 
 
-def inv_stage_smem_bytes(schedule) -> int:
-    """Shared memory of one block of the inverse stage: the head's tile
-    beside its line buffer, or a grid pass's lines, whichever is more."""
-    head_w, head_h, head_rows, rows, _, _ = schedule
-    tile = head_w * head_h * 4
-    return max([tile] + [tile + dwt53_smem_bytes(r[4], r[2])
-                         for r in head_rows]
-               + [dwt53_smem_bytes(r[4], r[2]) for r in rows])
-
-
-@functools.lru_cache(maxsize=256)
-def _inv_table(schedule: tuple):
-    """The head's and the grid's pass rows as the int64 array the kernel
-    reads (a head row's done window is unused: 0 × 0), once checked."""
-    _, _, head_rows, rows, _, _ = schedule
-    if len(head_rows) + len(rows) > STAGE_MAX_PASSES:
-        raise KernelLaunchError(f"j2k_inv_stage: "
-                                f"{len(head_rows) + len(rows)} passes")
-    if inv_stage_smem_bytes(schedule) > SMEM_MAX_BYTES:
-        raise KernelLaunchError("j2k_inv_stage: the schedule exceeds shared "
-                                "memory")
-    flat = ([int(v) for r in head_rows for v in (*r, 0, 0)]
-            + [int(v) for r in rows for v in r])
-    return (ctypes.c_longlong * max(1, len(flat)))(*flat)
-
-
 def _int32(v: int) -> int:
     """v wrapped to int32, as the kernel adds it."""
     return (v + (1 << 31)) % (1 << 32) - (1 << 31)
 
 
-def j2k_inv_stage(src: torch.Tensor, coef: torch.Tensor, schedule,
+def j2k_inv_stage(src: torch.Tensor, out: torch.Tensor, schedule,
                   comps: int, epilogue: str, mct: bool = False,
-                  bits: int = 16, signed: bool = False,
-                  out: torch.Tensor = None) -> None:
+                  bits: int = 16, signed: bool = False) -> None:
     """Launch the inverse stage once: packed coefficients ``src``
-    [P, H, W] (a dtype of ``INV_STAGE_DTYPES``; may be ``coef`` itself) →
-    ``schedule``'s inverse 5/3 in the int32 ``coef`` [P, H, W] → the
-    epilogue. The P planes are frames of ``comps`` components each.
+    [P, H, W] (a dtype of ``INV_STAGE_DTYPES``; never ``out`` itself) →
+    the levels of ``schedule`` → the epilogue into ``out`` [P, H, W]. The
+    P planes are frames of ``comps`` components each.
 
-    ``schedule`` is ``ops/dwt53.py:inv_schedule``'s (head_w, head_h,
-    head rows, grid rows, final_w, final_h). Epilogue "coeffs" leaves the
-    coefficients in ``coef``; "pixels" writes ``out`` (int32, may be
-    ``coef``) and "narrow" ``out`` (uint16, or int16 when ``signed``, clipped
-    to the ``bits``-bit range): the inverse RCT of components 0-2 when
-    ``mct`` and ``comps`` >= 3, then + 2^(bits-1) unless ``signed``.
+    ``schedule`` is ``ops/dwt53.py:inv_schedule``'s (tile, scratch words a
+    plane, rows). Epilogue "coeffs" writes the int32 reconstruction;
+    "pixels" int32 samples and "narrow" 16-bit ones (uint16, or int16 when
+    ``signed``, clipped to the ``bits``-bit range): the inverse RCT of
+    components 0-2 when ``mct`` and ``comps`` >= 3, then + 2^(bits-1)
+    unless ``signed``. The levels pass their reconstruction through an
+    int32 scratch of P × the schedule's words.
     """
-    _require(coef, torch.int32, "j2k_inv_stage coef")
     if src.dtype not in INV_STAGE_DTYPES:
         raise KernelLaunchError(f"j2k_inv_stage: no route for {src.dtype}")
     _require(src, src.dtype, "j2k_inv_stage src")
-    if (src.dim() != 3 or coef.shape != src.shape or src.numel() == 0
-            or comps < 1 or src.shape[0] % comps):
-        raise KernelLaunchError(f"j2k_inv_stage: bad shapes "
-                                f"{tuple(src.shape)} → {tuple(coef.shape)} "
-                                f"of {comps} components")
+    if (src.dim() != 3 or src.numel() == 0 or comps < 1
+            or src.shape[0] % comps):
+        raise KernelLaunchError(f"j2k_inv_stage: bad shape "
+                                f"{tuple(src.shape)} of {comps} components")
     if epilogue not in INV_STAGE_EPILOGUES:
         raise KernelLaunchError(f"j2k_inv_stage: no epilogue {epilogue!r}")
     lo = hi = 0
@@ -398,24 +398,26 @@ def j2k_inv_stage(src: torch.Tensor, coef: torch.Tensor, schedule,
                   else (0, (1 << bits) - 1))
     else:
         want = torch.int32
-    if epilogue != "coeffs":
-        _require(out, want, "j2k_inv_stage out")
-        if out.shape != src.shape:
-            raise KernelLaunchError(f"j2k_inv_stage: out needs "
-                                    f"{tuple(src.shape)}, got "
-                                    f"{tuple(out.shape)}")
-    table = _inv_table(schedule)
-    head_w, head_h, head_rows, rows, final_w, final_h = schedule
+    _require(out, want, "j2k_inv_stage out")
+    if out.shape != src.shape or out.device != src.device:
+        raise KernelLaunchError(f"j2k_inv_stage: out needs "
+                                f"{tuple(src.shape)} on {src.device}, got "
+                                f"{tuple(out.shape)} on {out.device}")
+    if out.data_ptr() == src.data_ptr():
+        raise KernelLaunchError("j2k_inv_stage: src is out; the stage "
+                                "never writes its input")
+    table = _stage_table("j2k_inv_stage", tuple(schedule))
     p, h, w = src.shape
+    scratch = _scratch(schedule, p, src)
     dc = 0 if signed else 1 << (bits - 1)
     lib = _load()
     with torch.cuda.device(src.device):
         err = lib.gdct_j2k_inv_stage(
-            src.data_ptr(), INV_STAGE_DTYPES[src.dtype], coef.data_ptr(),
-            0 if out is None else out.data_ptr(), p // comps, comps, h, w,
-            table, len(head_rows), len(rows), head_w, head_h, final_w,
-            final_h, INV_STAGE_EPILOGUES[epilogue], int(bool(mct)),
-            _int32(dc), lo, hi, _stream(src))
+            src.data_ptr(), INV_STAGE_DTYPES[src.dtype], out.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), p // comps, comps,
+            h, w, table, len(schedule[2]), schedule[0], schedule[1],
+            INV_STAGE_EPILOGUES[epilogue], int(bool(mct)), _int32(dc), lo,
+            hi, _stream(src))
     launch_counts["j2k_inv_stage"] += 1
     _check(lib, err, "j2k_inv_stage")
 

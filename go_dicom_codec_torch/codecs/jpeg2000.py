@@ -26,9 +26,9 @@ from ..codestream import j2k
 from ..entropy.ebcot import T1Decoder, T1Encoder
 from ..errors import CorruptStreamError, UnsupportedFormatError
 from ..ops.convert import round_to_int32_sat
-from ..ops.dwt53 import inv53_multilevel_
 from ..ops.dwt97 import fwd97_multilevel, inv97_multilevel
 from ..ops.j2k_fwd_stage import fwd_stage
+from ..ops.j2k_inv_stage import inv_stage
 from ..ops.mct import (dc_level_shift, dc_level_shift_np, ict_forward,
                        ict_inverse, inv_dc_level_shift,
                        inv_dc_level_shift_np, mct_matrix_forward,
@@ -43,8 +43,7 @@ from .j2k_geometry import (BandGeom, ResolutionGeom, build_tile_geometry,
 
 
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
-    """A contiguous copy of ``a`` on ``device``, which the caller owns
-    (the 5/3 transforms it in place)."""
+    """A contiguous copy of ``a`` on ``device``, which the caller owns."""
     if device is None:
         raise ValueError("the J2K device stage needs a torch.device")
     return torch.tensor(np.ascontiguousarray(a), device=device)
@@ -1206,8 +1205,8 @@ def tile_coeffs_device(comps: torch.Tensor, x0: int, y0: int, levels: int,
     the tile origin (x0, y0). Every op is elementwise across frames, so
     J2KEncoder (one frame) and the sharded encode (parallel/mesh.py, a
     block of frames) get the same coefficients. On a CUDA tensor the 5/3
-    is one launch of csrc/j2k_fwd_stage.cu, the DC shift fused into it
-    when no colour transform precedes it."""
+    is one launch of csrc/j2k_fwd_stage.cu, the DC shift (and the RCT of
+    ``colour``) fused into it when no Part-2 transform precedes it."""
     def matrix_forward(x, matrix, offsets):
         # the component axis first, as mct_matrix_forward takes it;
         # offsets subtract before the matrix
@@ -1218,9 +1217,9 @@ def tile_coeffs_device(comps: torch.Tensor, x0: int, y0: int, levels: int,
 
     ncomp = comps.shape[1]
     colour = use_mct and ncomp == 3 and mct_matrix is None
-    if lossless and not mct_bindings and mct_matrix is None and not colour:
+    if lossless and not mct_bindings and mct_matrix is None:
         return fwd_stage(comps, 0 if signed else 1 << (bit_depth - 1),
-                         levels, x0, y0)
+                         levels, x0, y0, mct=colour)
     comps = dc_level_shift(comps.to(torch.int32), bit_depth, signed)
     if mct_bindings:
         for b in mct_bindings:
@@ -2076,8 +2075,8 @@ class J2KDecoder:
                     rec = np.stack([r_, g_, b_]
                                    + [rec[i] for i in range(3, ncomp)])
             else:
-                rec = inv53_multilevel_(_to_device(packed, self.device),
-                                        eff_levels, x0=etx0, y0=ety0)
+                rec = inv_stage(_to_device(packed, self.device),
+                                eff_levels, etx0, ety0, epilogue="coeffs")
                 if mct_bindings_inv:
                     rec = round_to_int32_sat(_apply_mct_bindings_inverse(
                         rec, mct_bindings_inv))
@@ -2146,9 +2145,9 @@ class J2KDecoder:
                     nat_rc = (_nat.dwt53_inv_native(pk, lv_c,
                                                     ctx0, cty0)
                               if _nat.get_lib() is not None else None)
-                    rc = nat_rc if nat_rc is not None else inv53_multilevel_(
-                        _to_device(pk[None], self.device), lv_c,
-                        x0=ctx0, y0=cty0)[0].cpu().numpy()
+                    rc = nat_rc if nat_rc is not None else inv_stage(
+                        _to_device(pk[None], self.device), lv_c, ctx0,
+                        cty0, epilogue="coeffs")[0].cpu().numpy()
                 else:
                     fp = dequantize_packed(
                         pk, (ctx0, cty0, ctx1, cty1), lv_c,

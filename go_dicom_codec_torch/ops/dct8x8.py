@@ -2,10 +2,11 @@
 
 Port of ``go_dicom_codec_tpu/ops/dct8x8.py``:
 
-- the float32 orthonormal DCT and quantization (:36-111), the plain
-  version of the fused kernel in ``fdct8x8_quant``. As in the reference,
-  no codec path runs this float DCT; it exists for the device bench and as
-  the kernel's reference;
+- the float32 orthonormal DCT pair and (de)quantization (:36-111):
+  ``fdct8x8`` and ``quantize``, the plain version of the fused kernel in
+  ``fdct8x8_quant``, and ``idct8x8`` and ``dequantize``, their inverses.
+  As in the reference, no codec path runs this float pair; it exists for
+  the device bench and as the kernel's reference;
 - the zigzag tables and scans, RGB ↔ YCbCr in torch and numpy;
 - the JPEG codec stages over the integer islow DCT (ops/dct_int.py):
   ``encode_plane_to_zigzag`` (pad → shift → DCT → quant → zigzag) and
@@ -95,6 +96,13 @@ def fdct8x8(blocks: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ux,...xy,vy->...uv", d, x, d)
 
 
+def idct8x8(coeffs: torch.Tensor) -> torch.Tensor:
+    """Inverse of fdct8x8 (Dᵀ F D): [..., 8, 8] → float32 samples."""
+    f = coeffs.to(torch.float32)
+    d = _basis(f.device)
+    return torch.einsum("ux,...uv,vy->...xy", d, f, d)
+
+
 def quantize(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
     """Round-half-away(F/Q) → int32 (encoder.go:458-465 semantics),
     saturating as the reference's cast does (NaN → 0)."""
@@ -102,6 +110,12 @@ def quantize(coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
     r = coeffs / q
     return saturate_int32(torch.where(r >= 0, torch.floor(r + 0.5),
                                       -torch.floor(-r + 0.5)))
+
+
+def dequantize(q_coeffs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
+    """Quantized coefficients [..., 8, 8] × ``qtable`` → float32."""
+    q = qtable.reshape((1,) * (q_coeffs.ndim - 2) + (8, 8)).to(torch.float32)
+    return q_coeffs.to(torch.float32) * q
 
 
 def to_blocks(plane: torch.Tensor) -> torch.Tensor:

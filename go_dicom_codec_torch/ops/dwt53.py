@@ -8,12 +8,16 @@ Port of ``go_dicom_codec_tpu/ops/dwt53.py:37-344``, in two lanes:
 - the kernel lane: for a CUDA tensor the whole forward transform is one
   launch of ``csrc/j2k_fwd_stage.cu`` and the whole inverse one launch of
   ``csrc/j2k_inv_stage.cu`` (``fwd_schedule`` and ``inv_schedule`` are
-  their pass tables); lines too long for shared memory run one 2D level
-  as two launches of the lifting passes of ``csrc/dwt53.cu``, one along
-  columns and one along rows.
+  their level tables: one 2D-tiled pass a level); lines too long for
+  shared memory run one 2D level as two launches of the lifting passes of
+  ``csrc/dwt53.cu``, one along columns and one along rows.
 
 ``fwd53_multilevel_``/``inv53_multilevel_`` pick the kernel lane for a
 CUDA tensor and the plain lane for a CPU tensor; any other device raises.
+The fused stages never write their input, so on a CUDA tensor these
+in-place forms launch the stage on a copy; the codecs call the
+out-of-place ``ops/j2k_fwd_stage.fwd_stage`` and
+``ops/j2k_inv_stage.inv_stage`` instead, which copy nothing.
 
 Layout: packed Mallat, ``[L | H]`` per axis in the window; after one 2D
 level the window is [[LL, HL], [LH, HH]] and the next level works on the
@@ -29,7 +33,7 @@ int32 arithmetic with arithmetic ``>>``, bit-exact with the reference.
 from __future__ import annotations
 
 import functools
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, List, Tuple
 
 import torch
 
@@ -209,12 +213,6 @@ def _inv_level_plain_(x, h, w, even_row, even_col):
 
 _ROW_SAMPLES_PER_BLOCK = 2048   # rows share a block up to this many samples
 _COLS_PER_BLOCK = 32            # 32 int32 columns = one 128-byte segment
-# The fused stage takes 8 columns (one 32-byte sector) a work item: with
-# 4 frames of 512² its level-1 column pass has 4× the items of 32, and its
-# one shared-memory size for every pass drops from 65.7 to 16.4 KB, so
-# more blocks are co-resident. On the H100, 8 ran the narrow stage faster
-# than 16 or 32 at 4 and at 32 frames of 512² (PERF.md §5).
-_STAGE_COLS_PER_BLOCK = 8
 
 
 def _level_passes(h: int, w: int, even_row: bool,
@@ -250,92 +248,108 @@ def _pass_geometry(width: int, h: int, w: int, vertical: bool,
     return n_lines, line_stride, n, elem_stride, max(1, min(lpb, n_lines, fit))
 
 
-@functools.lru_cache(maxsize=256)
-def fwd_schedule(width: int, height: int, levels: int, x0: int = 0,
-                 y0: int = 0) -> Optional[Tuple[Tuple[int, ...], ...]]:
-    """The forward transform of [H, W] planes as the pass table of
-    csrc/j2k_fwd_stage.cu: rows of (n_lines, line_stride, n, elem_stride,
-    lines_per_block, even), finest level first. None when a line is too
-    long for shared memory: the transform then runs pass by pass."""
-    table = []
-    for (w, h, lx0, ly0) in _level_windows(width, height, levels, x0, y0):
-        for vertical, even in _level_passes(h, w, lx0 % 2 == 0,
-                                            ly0 % 2 == 0):
-            geom = _pass_geometry(width, h, w, vertical,
-                                  _STAGE_COLS_PER_BLOCK)
-            if _kernels.dwt53_long_line(geom[2]):
-                return None
-            table.append(geom + (int(even),))
-    return tuple(table)
+# ---- the fused stages' level tables ------------------------------------------
 
-
+# The side of the stages' output tiles (csrc/lifting.cuh, the tile pass): a
+# tile of 64² and its halo of 2 take 18.5 KB of shared memory a buffer,
+# three buffers (the RCT's components) 55.5 KB.
+_TILE = 64
 # The inverse stage's head: the coarsest levels whose window holds at most
-# this many samples run in one block a plane, in shared memory, before the
-# first grid barrier (csrc/j2k_inv_stage.cu). Chosen on the H100 from none,
-# 64² and 128² (the HEAD| lines of tools/device_bench.py, PERF.md).
+# this many samples run in one block a plane (block rows), before the
+# first grid barrier. Chosen on the H100 from none, 64² and 128² (the
+# HEAD| lines of tools/device_bench.py, PERF.md).
 _HEAD_SAMPLES = 64 * 64
 
+ROW_KINDS = {"grid": 0, "block": 1}
 
-def _head_rows(wins) -> list:
-    """The passes of the head levels ``wins`` (finest first), coarsest
-    first, on a tile of the finest window; lpb lines of ~2048 samples."""
-    head = []
-    for (w, h, lx0, ly0) in reversed(wins):
-        for vertical, even in reversed(_level_passes(h, w, lx0 % 2 == 0,
-                                                     ly0 % 2 == 0)):
-            n_lines, line_stride, n, elem_stride, _ = _pass_geometry(
-                wins[0][0], h, w, vertical)
-            lpb = max(1, min(n_lines, _ROW_SAMPLES_PER_BLOCK // n))
-            head.append((n_lines, line_stride, n, elem_stride, lpb,
-                         int(even)))
-    return head
+
+def _stage_windows(width: int, height: int, levels: int, x0: int, y0: int):
+    """The level windows of a stage, finest first, less those that change
+    nothing (1×1 at even parity both ways), or None when a line is too
+    long for shared memory (over 58111 samples): the transform then runs
+    pass by pass, on the long-line route of csrc/dwt53.cu."""
+    wins = _level_windows(width, height, levels, x0, y0)
+    if wins and (_kernels.dwt53_long_line(width)
+                 or _kernels.dwt53_long_line(height)):
+        return None
+    return [(w, h, lx0, ly0) for (w, h, lx0, ly0) in wins
+            if not (w == 1 and h == 1 and lx0 % 2 == 0 and ly0 % 2 == 0)]
+
+
+def _ll_size(w: int, h: int, lx0: int, ly0: int) -> int:
+    return low_len(w, lx0 % 2 == 0) * low_len(h, ly0 % 2 == 0)
+
+
+def _scratch(sizes: List[int]) -> Tuple[List[int], int]:
+    """Offsets of the areas of ``sizes`` (in the order the levels write
+    them, the largest first): two areas in turn, so that no level writes
+    where it reads; and the words a plane's scratch takes."""
+    slots = [0, sizes[0] if sizes else 0]
+    return ([slots[i % 2] for i in range(len(sizes))],
+            sum(sizes[:2]))
+
+
+@functools.lru_cache(maxsize=256)
+def fwd_schedule(width: int, height: int, levels: int, x0: int = 0,
+                 y0: int = 0):
+    """The forward transform of [H, W] planes as csrc/j2k_fwd_stage.cu
+    runs it: (tile, scratch words a plane, rows), or None when a line is
+    too long for shared memory (the transform then runs pass by pass).
+
+    One row a level, finest first: (kind, w, h, even_x, even_y, in_off,
+    out_off). kind "grid" spreads the level's tiles over the grid, "block"
+    (the levels whose window fits one tile) runs in one block a plane;
+    in_off is -1 for the stage's input (the first level), else where the
+    level's w×h input lies in a plane's scratch; out_off is where its LL
+    goes there, -1 for the output (the last level).
+    """
+    wins = _stage_windows(width, height, levels, x0, y0)
+    if wins is None:
+        return None
+    outs, words = _scratch([_ll_size(*win) for win in wins[:-1]])
+    rows = []
+    for i, (w, h, lx0, ly0) in enumerate(wins):
+        kind = "block" if w <= _TILE and h <= _TILE else "grid"
+        rows.append((ROW_KINDS[kind], w, h, int(lx0 % 2 == 0),
+                     int(ly0 % 2 == 0), outs[i - 1] if i else -1,
+                     outs[i] if i < len(wins) - 1 else -1))
+    return (_TILE, words, tuple(rows))
 
 
 def _inv_schedule(width: int, height: int, levels: int, x0: int, y0: int,
                   head_samples: int):
     """``inv_schedule`` with a head of at most ``head_samples`` samples."""
-    wins = _level_windows(width, height, levels, x0, y0)
-    n_head = 0
-    while (n_head < len(wins)
-           and wins[-1 - n_head][0] * wins[-1 - n_head][1] <= head_samples):
-        n_head += 1
-    # fewer head levels where the tile and its lines exceed shared memory
-    while n_head and _kernels.inv_stage_smem_bytes(
-            wins[-n_head][:2] + (_head_rows(wins[-n_head:]), (), 0, 0)) > \
-            _kernels.SMEM_MAX_BYTES:
-        n_head -= 1
-    head_wins, grid_wins = wins[len(wins) - n_head:], wins[:len(wins) - n_head]
-    head_w, head_h = head_wins[0][:2] if head_wins else (0, 0)
-    rows, (done_w, done_h) = [], (head_w, head_h)
-    for (w, h, lx0, ly0) in reversed(grid_wins):
-        for vertical, even in reversed(_level_passes(h, w, lx0 % 2 == 0,
-                                                     ly0 % 2 == 0)):
-            geom = _pass_geometry(width, h, w, vertical,
-                                  _STAGE_COLS_PER_BLOCK)
-            if _kernels.dwt53_long_line(geom[2]):
-                return None
-            done = (done_w, done_h) if vertical else (done_h, done_w)
-            rows.append(geom + (int(even),) + done)
-            done_w, done_h = w, h
-    return (head_w, head_h, tuple(_head_rows(head_wins)), tuple(rows),
-            done_w, done_h)
+    wins = _stage_windows(width, height, levels, x0, y0)
+    if wins is None:
+        return None
+    wins = wins[::-1]                                  # coarsest first
+    # a level's reconstruction is the next one's LL: the last-but-one is
+    # the largest, so the areas are handed out from the finest level up
+    outs, words = _scratch([w * h for (w, h, _, _) in wins[-2::-1]])
+    outs = outs[::-1]
+    rows = []
+    for i, (w, h, lx0, ly0) in enumerate(wins):
+        kind = "block" if w * h <= head_samples else "grid"
+        rows.append((ROW_KINDS[kind], w, h, int(lx0 % 2 == 0),
+                     int(ly0 % 2 == 0), outs[i - 1] if i else -1,
+                     outs[i] if i < len(wins) - 1 else -1))
+    return (_TILE, words, tuple(rows))
 
 
 @functools.lru_cache(maxsize=256)
 def inv_schedule(width: int, height: int, levels: int, x0: int = 0,
                  y0: int = 0):
     """The inverse transform of [H, W] planes as csrc/j2k_inv_stage.cu
-    runs it: (head_w, head_h, head rows, grid rows, final_w, final_h), or
-    None when a line is too long for shared memory (the transform then
-    runs pass by pass).
+    runs it: (tile, scratch words a plane, rows), or None when a line is
+    too long for shared memory (the transform then runs pass by pass).
 
-    The head is the top-left head_w × head_h window of the coarsest levels
-    whose windows hold at most ``_HEAD_SAMPLES`` samples; its rows (n_lines,
-    line_stride, n, elem_stride, lines_per_block, even), coarsest first,
-    address a tile of that window. The grid rows follow, coarsest first,
-    with two more columns: the window that earlier passes wrote, as
-    (lines, samples) in the pass's own order. final_w × final_h is the
-    window the whole schedule writes.
+    One row a level, coarsest first, as in ``fwd_schedule``: (kind, w, h,
+    even_x, even_y, in_off, out_off). The head is the coarsest levels
+    whose window holds at most ``_HEAD_SAMPLES`` samples ("block" rows);
+    in_off is -1 where the level's LL lies in the input (the coarsest
+    level), else where the level above wrote it in a plane's scratch;
+    out_off is where the level's w×h reconstruction goes there, -1 for
+    the output (the finest level).
     """
     return _inv_schedule(width, height, levels, x0, y0, _HEAD_SAMPLES)
 
@@ -400,21 +414,23 @@ def _fwd_multilevel_kernel_(x: torch.Tensor, levels: int, x0: int,
                             inverse=False)
     if x.numel():
         x3 = _planes(x)
-        _kernels.j2k_fwd_stage(x3, x3, sched, 0, "coeffs")
+        # the stage never writes its input: it reads a copy
+        _kernels.j2k_fwd_stage(x3.clone(), x3, sched, 0, "coeffs")
     return x
 
 
 def _inv_multilevel_kernel_(x: torch.Tensor, levels: int, x0: int,
                             y0: int) -> torch.Tensor:
-    """One launch of the inverse stage, in place, or pass by pass where a
-    line is too long for shared memory."""
+    """One launch of the inverse stage, or pass by pass where a line is too
+    long for shared memory."""
     sched = inv_schedule(x.shape[-1], x.shape[-2], levels, x0, y0)
     if sched is None:
         return _multilevel_(x, levels, x0, y0, _inv_level_kernel_,
                             inverse=True)
     if x.numel():
         x3 = _planes(x)
-        _kernels.j2k_inv_stage(x3, x3, sched, 1, "coeffs")
+        # the stage never writes its input: it reads a copy
+        _kernels.j2k_inv_stage(x3.clone(), x3, sched, 1, "coeffs")
     return x
 
 

@@ -107,13 +107,10 @@ def _inv_stage_kernel(x: torch.Tensor, levels: int, x0: int = 0, y0: int = 0,
     if x.dtype not in _kernels.INV_STAGE_DTYPES:
         x = x.to(torch.int32)
     src = x.contiguous().view(-1, h, w)
-    coef = torch.empty(src.shape, dtype=torch.int32, device=x.device)
     comps = x.shape[1] if mct and x.dim() == 4 else 1
-    if epilogue == "narrow":
-        out = torch.empty(src.shape, device=x.device,
-                          dtype=torch.int16 if signed else torch.uint16)
-    else:
-        out = None if epilogue == "coeffs" else coef  # pixels: in place
-    _kernels.j2k_inv_stage(src, coef, sched, comps, epilogue, mct, bits,
-                           signed, out)
-    return (coef if out is None else out).view(x.shape)
+    dtype = ((torch.int16 if signed else torch.uint16)
+             if epilogue == "narrow" else torch.int32)
+    out = torch.empty(src.shape, dtype=dtype, device=x.device)
+    _kernels.j2k_inv_stage(src, out, sched, comps, epilogue, mct, bits,
+                           signed)
+    return out.view(x.shape)

@@ -8,8 +8,9 @@ Port of ``go_dicom_codec_tpu/pipeline.py``:
   (``fetch_coeffs``) and the reversible and irreversible decode stages.
   Every stage takes tensors on the device it should run on; on CUDA
   tensors each encode stage is one launch of the fused forward stage
-  (ops/j2k_fwd_stage.py) after the RCT, and the reversible decode stage
-  one launch of the fused inverse stage (ops/j2k_inv_stage.py);
+  (ops/j2k_fwd_stage.py, the DC shift and the RCT of RGB frames fused into
+  it), and the reversible decode stage one launch of the fused inverse
+  stage (ops/j2k_inv_stage.py);
 - the measured transfer policy that picks the transform engine;
 - the double-buffered ``encode_frames_pipelined`` and
   ``decode_frames_pipelined``: the device transforms chunk k+1 while the
@@ -35,9 +36,8 @@ import torch
 from .ops.convert import round_to_int32_sat
 from .ops.dwt53 import fwd53_multilevel_, inv53_multilevel_
 from .ops.dwt97 import inv97_multilevel
-from .ops.mct import (dc_level_shift, ict_inverse, ict_inverse_np,
-                      inv_dc_level_shift, rct_forward, rct_forward_np,
-                      rct_inverse_np)
+from .ops.mct import (ict_inverse, ict_inverse_np, inv_dc_level_shift,
+                      rct_forward_np, rct_inverse_np)
 from .ops.j2k_fwd_stage import fwd_stage
 from .ops.j2k_inv_stage import inv_stage, narrow_pixels
 
@@ -48,12 +48,6 @@ ENGINES = ("auto", "device", "host")
 def _dc_shift(bits: int, signed: bool) -> int:
     """What the DC shift subtracts (ops/mct.py dc_level_shift)."""
     return 0 if signed else 1 << (bits - 1)
-
-
-def _rct_shifted(frames: torch.Tensor, bits: int) -> torch.Tensor:
-    """[B, 3, H, W] → DC shift → RCT, stacked as [B, 3, H, W] int32."""
-    s = dc_level_shift(frames.to(torch.int32), bits, signed=False)
-    return torch.stack(rct_forward(s[:, 0], s[:, 1], s[:, 2]), dim=1)
 
 
 def j2k_lossless_encode_transform(frames: torch.Tensor, levels: int = 5,
@@ -72,10 +66,10 @@ def j2k_rgb_lossless_encode_transform(frames: torch.Tensor, levels: int = 5,
                                       bits: int = 8, cb: int = 64):
     """RGB J2K lossless device stage: [B, 3, H, W] → coeffs + stats.
 
-    DC shift → RCT → per-component multilevel 5/3.
+    DC shift → RCT → per-component multilevel 5/3, one fused stage.
     """
-    return fwd_stage(_rct_shifted(frames, bits), 0, levels,
-                     epilogue="stats", cb=cb)
+    return fwd_stage(frames, _dc_shift(bits, False), levels,
+                     epilogue="stats", cb=cb, mct=True)
 
 
 # int16 readback halves the transfer. Typical 5/3 coefficients of ≤12-bit
@@ -92,9 +86,10 @@ def _pipeline_device_stage(x: torch.Tensor, bits: int, signed: bool,
 
 def _pipeline_device_stage_rgb(x: torch.Tensor, bits: int, lv: int,
                                narrow: bool = False):
-    """[B, 3, H, W] → DC shift → RCT → per-component 5/3."""
-    return fwd_stage(_rct_shifted(x, bits), 0, lv,
-                     epilogue="narrow" if narrow else "coeffs")
+    """[B, 3, H, W] → DC shift → RCT → per-component 5/3, one fused
+    stage."""
+    return fwd_stage(x, _dc_shift(bits, False), lv,
+                     epilogue="narrow" if narrow else "coeffs", mct=True)
 
 
 def fetch_coeffs(result, x: torch.Tensor, bits: int, signed: bool, lv: int,
@@ -144,10 +139,7 @@ def _j2k_decode_device_stage(packed: torch.Tensor, levels: int, x0: int,
     if not mct_inv:
         return inv_stage(packed, levels, x0, y0, bits, signed, mct,
                          "narrow" if narrow else "pixels")
-    rec = inv53_multilevel_(
-        packed.to(torch.int32, copy=True,
-                  memory_format=torch.contiguous_format),
-        levels, x0=x0, y0=y0)
+    rec = inv_stage(packed, levels, x0, y0, epilogue="coeffs")
     px = inv_dc_level_shift(round_to_int32_sat(_mct_inverse(rec, mct_inv)),
                             bits, signed)
     return narrow_pixels(px, bits, signed) if narrow else px

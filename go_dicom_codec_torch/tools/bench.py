@@ -109,9 +109,10 @@ def _time_chain(step, x: torch.Tensor, iters: int) -> tuple:
 
 def _device_s(step, x: torch.Tensor, iters: int) -> float:
     """Device time of one chain: the kernel, copy and fill time
-    torch.profiler records."""
+    torch.profiler records (None where it recorded no device event)."""
     from .device_bench import device_ms
-    return device_ms(lambda: chain(step, x, iters), iters=1)[0] / 1e3
+    ms = device_ms(lambda: chain(step, x, iters), iters=1)[0]
+    return None if ms is None else ms / 1e3
 
 
 def _card(device: torch.device) -> tuple:

@@ -14,6 +14,9 @@ of ``bench.py:47-98``. Rows:
     frames → int16 coefficients and the max |coeff|;
   - ``j2k_stage_stats``: ``j2k_lossless_encode_transform``, int32 frames →
     coefficients and 64×64 code-block stats;
+  - ``j2k_stage_narrow_rgb``: the RGB pipelines' encode stage, 8-bit uint8
+    [B, 3, H, W] frames → DC shift and RCT (fused into the stage) → int16
+    coefficients and the max |coeff|;
   - ``dct8x8_quant_pallas``: the fused 8×8 DCT + quant kernel, the port of
     the Pallas kernel;
   - ``dct8x8_quant_zigzag``: the JPEG codecs' forward stage, 12-bit uint16
@@ -35,9 +38,10 @@ hand-written kernel computes them. Each other row runs in the kernel lane
 (the hand-written kernels: one launch of the fused forward stage for every
 forward 5/3, of the fused inverse stage for every inverse) and the plain
 lane (the same step in plain torch),
-except the ceiling, which is plain torch only; the two stage rows also run
-the per-pass lane (torch widen and shift, two lifting-pass launches a
-level, torch epilogue: what lines too long for shared memory take); the
+except the ceiling, which is plain torch only; the three stage rows also
+run the per-pass lane (torch widen, shift and RCT, two lifting-pass
+launches a level, torch epilogue: what lines too long for shared memory
+take); the
 two islow rows run one launch of their kernel of csrc/jpeg_islow.cu in the
 kernel lane. Inputs are device-resident 12-bit samples from
 ``numpy.random.default_rng(seed)``. A run is ``iters`` calls back to back
@@ -50,12 +54,12 @@ The command line then shows, in the same process, where the time goes
 and inverse alone (fused, ten passes, plain), the device time per call
 (the kernel time torch.profiler records over ``iters`` calls), the device
 operations per call, its largest kernels and the device's idle share,
-1 − device time / event time; the stage rows again at a batch of
-``STAGE_SMALL_BATCH`` (the encode pipeline's chunk); the narrow decode
-stage (int16 coefficients → uint16 pixels: the fused inverse stage, the
-per-pass lane and plain torch) of gray 12-bit and RGB 8-bit frames at the
-batch and at ``DECODE_SMALL_BATCH`` (the decode pipeline's chunk); the two
-islow rows with their bound (``jpeg_profile``); then the inverse stage's
+1 − device time / event time; the narrow decode stage (int16
+coefficients → uint16 pixels: the fused inverse stage, the per-pass lane
+and plain torch) of gray 12-bit and RGB 8-bit frames; the stage and
+decode rows again at batches of ``DECODE_SMALL_BATCH`` (the decode
+pipeline's chunk) and ``STAGE_SMALL_BATCH`` (the encode pipeline's); the
+two islow rows with their bound (``jpeg_profile``); then the inverse stage's
 head budgets (``head_profile``: none, 64² and 128²
 samples at both batches, ``HEAD|``); then the same for each single lifting
 pass of the
@@ -70,12 +74,17 @@ over the H100's 3.35 TB/s.
 
 Usage:
     python -m go_dicom_codec_torch.tools.device_bench [--batch N]
-        [--size WxH] [--iters N]
+        [--size WxH] [--iters N] [--levels] [--trace N]
 
 Prints the card, one ``BENCH|`` JSON line per row and lane, one
 ``PROFILE|`` line per step, one ``HEAD|`` line per head budget and batch,
 one ``PASS|`` line per pass and one ``LONG|`` line per long-route step and
-lane. Needs a CUDA device.
+lane. ``--levels`` and ``--trace`` print, instead, what each level of the
+fused stages adds (``level_profile``, ``LEVELS|`` lines: the narrow
+forward and decode stages of ``--batch`` gray frames at 0-5 levels), and
+``N`` pairs of ``utils.profiling.torch_trace`` windows with the kernel
+events each holds beside the launches (``trace_counts``, ``TRACE|``
+lines). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -143,10 +152,11 @@ def fwd53_passes_(x: torch.Tensor, levels: int, x0: int = 0,
 
 
 def stage_passes(x: torch.Tensor, shift: int, levels: int, epilogue: str,
-                 cb: int = 64):
-    """The forward stage on the per-pass lane: torch widen and shift, the
-    lifting passes, the torch epilogue."""
-    return _epilogue(fwd53_passes_(_shifted(x, shift), levels), epilogue, cb)
+                 cb: int = 64, mct: bool = False):
+    """The forward stage on the per-pass lane: torch widen, shift and RCT,
+    the lifting passes, the torch epilogue."""
+    return _epilogue(fwd53_passes_(_shifted(x, shift, mct), levels),
+                     epilogue, cb)
 
 
 def dwt53_stats(x: torch.Tensor, lane: str = "kernel"):
@@ -210,18 +220,20 @@ def time_ms(fn, iters: int = 10) -> tuple:
     return statistics.median(dev), statistics.median(host)
 
 
-def device_ms(fn, iters: int = 10) -> tuple:
+def device_ms(fn, iters: int = 10, launches: int = 1) -> tuple:
     """Kernel time per call of ``fn`` on the device, from torch.profiler
     over ``iters`` calls after one warm-up call: (ms, the six largest
     kernels as [name, µs per call], device operations per call: kernels,
     copies and fills). Only device events count: a torch op on the host
-    reports its kernels' time as its own as well. A profile that recorded
-    no device event at all is taken again, up to three times in all."""
+    reports its kernels' time as its own as well. torch.profiler drops
+    device events now and then, so a profile that holds fewer than
+    ``launches`` device operations a call (the kernels ``fn`` is known to
+    launch) is taken again, up to five times in all; then ms is None."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for _ in range(5):
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(iters):
                 fn()
@@ -229,13 +241,14 @@ def device_ms(fn, iters: int = 10) -> tuple:
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and e.self_device_time_total > 0]
-        if events:
+        ops = sum(e.count for e in events) / iters
+        if ops >= launches:
             break
     us = sorted(((e.self_device_time_total / iters, e.key) for e in events),
                 reverse=True)
     top = [[k[:72], t] for t, k in us[:6]]
-    ops = sum(e.count for e in events) / iters
-    return sum(t for t, _ in us) / 1e3, top, ops
+    ms = sum(t for t, _ in us) / 1e3 if ops >= launches else None
+    return ms, top, ops
 
 
 def _inputs(batch: int, height: int, width: int, seed: int):
@@ -251,22 +264,29 @@ def _inputs(batch: int, height: int, width: int, seed: int):
 
 
 def _stage_steps(x: torch.Tensor) -> dict:
-    """The two stage rows: {row: ({lane: step}, bound ms)}."""
-    def lanes(a, epilogue):
-        return {"kernel": lambda: fwd_stage(a, 2048, LEVELS,
-                                            epilogue=epilogue),
-                "passes": lambda: stage_passes(a, 2048, LEVELS, epilogue),
-                "plain": lambda: fwd_stage_plain(a, 2048, LEVELS,
-                                                 epilogue=epilogue)}
+    """The three stage rows: {row: ({lane: step}, bound ms)}."""
+    def lanes(a, epilogue, shift=2048, mct=False):
+        return {"kernel": lambda: fwd_stage(a, shift, LEVELS,
+                                            epilogue=epilogue, mct=mct),
+                "passes": lambda: stage_passes(a, shift, LEVELS, epilogue,
+                                               mct=mct),
+                "plain": lambda: fwd_stage_plain(a, shift, LEVELS,
+                                                 epilogue=epilogue, mct=mct)}
     cb = 64
     blocks = x.shape[0] * -(-x.shape[1] // cb) * -(-x.shape[2] // cb)
+    rng = np.random.default_rng(x.shape[0])
+    rgb = torch.as_tensor(rng.integers(0, 256, (x.shape[0], 3) + x.shape[1:])
+                          .astype(np.uint8), device=x.device)
     # bytes: uint16 in, int16 out and one int32; int32 in and out and two
-    # int32 a code-block
+    # int32 a code-block; uint8 in, int16 out and one int32
     return {"j2k_stage_narrow": (lanes(x.to(torch.uint16), "narrow"),
                                  (x.numel() * 4 + 4) / HBM_BYTES_PER_S * 1e3),
             "j2k_stage_stats": (lanes(x, "stats"),
                                 (x.numel() * 8 + blocks * 8)
-                                / HBM_BYTES_PER_S * 1e3)}
+                                / HBM_BYTES_PER_S * 1e3),
+            "j2k_stage_narrow_rgb": (lanes(rgb, "narrow", 128, True),
+                                     (rgb.numel() * 3 + 4)
+                                     / HBM_BYTES_PER_S * 1e3)}
 
 
 def _decode_steps(x: torch.Tensor) -> dict:
@@ -370,7 +390,8 @@ def _line(fn, iters: int, card: str, **key) -> dict:
     ms, host = time_ms(fn, iters)
     dev, top, ops = device_ms(fn, iters)
     return {**key, "event_ms": ms, "host_ms": host, "device_ms": dev,
-            "idle_share": 1 - dev / ms, "device_ops_per_call": ops,
+            "idle_share": None if dev is None else 1 - dev / ms,
+            "device_ops_per_call": ops,
             "top_kernels_us": top, "gpu": card}
 
 
@@ -425,21 +446,23 @@ def head_profile(batches=(DECODE_SMALL_BATCH, 32), height: int = 512,
                                       epilogue="narrow")
         for budget in HEAD_BUDGETS:
             sched = dwt53._inv_schedule(width, height, LEVELS, 0, 0, budget)
-            coef = torch.empty(pk.shape, dtype=torch.int32, device=pk.device)
             out = torch.empty(pk.shape, dtype=torch.uint16, device=pk.device)
 
-            def step(sched=sched, coef=coef, out=out):
-                _kernels.j2k_inv_stage(pk, coef, sched, 1, "narrow", False,
-                                       12, False, out)
+            def step(sched=sched, out=out):
+                _kernels.j2k_inv_stage(pk, out, sched, 1, "narrow", False,
+                                       12, False)
             step()
             if not torch.equal(out, want):
                 raise RuntimeError(f"head budget {budget}: the stage differs "
                                    f"from its plain version")
+            head = [r[1:3] for r in sched[2]
+                    if r[0] == dwt53.ROW_KINDS["block"]]
+            extent = max(head, default=(0, 0))
             lines.append(_line(
                 step, iters, card, step="inv_stage_head", batch=batch,
-                head_samples=budget, head=f"{sched[0]}x{sched[1]}",
-                grid_passes=len(sched[3]),
-                smem_bytes=_kernels.inv_stage_smem_bytes(sched),
+                head_samples=budget, head=f"{extent[0]}x{extent[1]}",
+                grid_levels=len(sched[2]) - len(head),
+                smem_bytes=_kernels.stage_smem_bytes(sched[0], False),
                 bound_ms=pk.numel() * 4 / HBM_BYTES_PER_S * 1e3))
     return lines
 
@@ -561,20 +584,131 @@ def long_profile(iters: int = 10, seed: int = 0, card: str = "") -> list:
     return lines
 
 
+def level_profile(batch: int = 32, height: int = 512, width: int = 512,
+                  iters: int = 10, seed: int = 0, card: str = "") -> list:
+    """What each level adds: the device ms of the fused narrow forward
+    stage of ``batch`` gray 12-bit frames, and of the narrow decode stage
+    of its coefficients, at 0 to ``LEVELS`` levels; one line a count."""
+    x, _ = _inputs(batch, height, width, seed)
+    x16 = x.to(torch.uint16)
+    card = card or card_info()
+    lines = []
+    for levels in range(LEVELS + 1):
+        pk = fwd_stage(x16, 2048, levels, epilogue="narrow")[0]
+        lines.append({
+            "levels": levels, "batch": batch,
+            "fwd_device_ms": device_ms(lambda: fwd_stage(
+                x16, 2048, levels, epilogue="narrow"), iters)[0],
+            "inv_device_ms": device_ms(lambda: istage.inv_stage(
+                pk, levels, bits=12, epilogue="narrow"), iters)[0],
+            "gpu": card})
+    return lines
+
+
+def _kernel_events(log_dir: str) -> list:
+    """The names of the kernel events of the one Chrome trace in log_dir."""
+    import glob
+    import os
+
+    path, = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def trace_counts(frames: int = 32, size: int = 512, seed: int = 1) -> dict:
+    """Two ``utils.profiling.torch_trace`` windows and the kernel events
+    each holds beside the launches (does the profiler drop events?):
+
+    - ``encode``: one registry .90 encode of ``frames`` gray size² 12-bit
+      frames, the forward stage's events beside its launches;
+    - ``mixed``: eight rounds of one narrow forward stage launch of
+      ``STAGE_SMALL_BATCH`` frames (through ctypes) and one torch
+      ``x + 1`` on one side stream, 40 ms of host time between rounds (as
+      the host's entropy coding leaves between chunks): the events of
+      each kind.
+    """
+    import tempfile
+
+    import go_dicom_codec_torch as gdc
+    from ..utils import profiling
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed)
+    info = gdc.FrameInfo(width=size, height=size, bits_allocated=16,
+                         bits_stored=12)
+    src = gdc.MemoryPixelData(info=info)
+    for f in rng.integers(0, 1 << 12, (frames, size, size)):
+        src.add_frame(f.astype("<u2").tobytes())
+    codec = gdc.make_registry(dev).get_codec(gdc.uids.JPEG_2000_LOSSLESS)
+    codec.encode(src, gdc.MemoryPixelData(info=info, encapsulated=True))
+    out = {}
+    with tempfile.TemporaryDirectory() as log_dir:
+        before = _kernels.launch_counts["j2k_fwd_stage"]
+        with profiling.torch_trace(log_dir):
+            codec.encode(src, gdc.MemoryPixelData(info=info,
+                                                  encapsulated=True))
+        names = _kernel_events(log_dir)
+        out["encode"] = {
+            "fwd_stage_kernel_events": sum("fwd_stage_kernel" in k
+                                           for k in names),
+            "j2k_fwd_stage_launches":
+                _kernels.launch_counts["j2k_fwd_stage"] - before,
+            "other_kernel_events": sum("fwd_stage_kernel" not in k
+                                       for k in names)}
+    x = torch.as_tensor(rng.integers(0, 1 << 12, (STAGE_SMALL_BATCH, size,
+                                                  size)).astype(np.uint16),
+                        device=dev)
+    y = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+
+    def round_():
+        with torch.cuda.stream(side):
+            fwd_stage(x, 2048, LEVELS, epilogue="narrow")
+            y.add_(1)
+    round_()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as log_dir:
+        with profiling.torch_trace(log_dir):
+            for _ in range(8):
+                round_()
+                time.sleep(0.04)
+        names = _kernel_events(log_dir)
+        out["mixed"] = {
+            "fwd_stage_kernel_events": sum("fwd_stage_kernel" in k
+                                           for k in names),
+            "xplus1_events": sum("elementwise" in k for k in names),
+            "rounds": 8}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--size", type=str, default="512x512")
     ap.add_argument("--iters", type=int, default=10)
+    ap.add_argument("--levels", action="store_true",
+                    help="only the LEVELS| lines")
+    ap.add_argument("--trace", type=int, default=0,
+                    help="only N pairs of TRACE| windows")
     opts = ap.parse_args(argv)
     w, h = (int(v) for v in opts.size.split("x"))
     card = card_info()
     print(card)
+    if opts.levels or opts.trace:
+        if opts.levels:
+            for r in level_profile(opts.batch, h, w, opts.iters, card=card):
+                print("LEVELS|" + json.dumps(r), flush=True)
+        for _ in range(opts.trace):
+            print("TRACE|" + json.dumps({**trace_counts(opts.batch, w),
+                                         "gpu": card}), flush=True)
+        return 0
     for r in run_bench(opts.batch, h, w, opts.iters, card=card):
         print("BENCH|" + json.dumps(r))
     steps, passes = run_profile(opts.batch, h, w, opts.iters, card=card)
-    steps += stage_profile(STAGE_SMALL_BATCH, h, w, opts.iters, card=card)
-    steps += decode_profile(DECODE_SMALL_BATCH, h, w, opts.iters, card=card)
+    for small in (DECODE_SMALL_BATCH, STAGE_SMALL_BATCH):
+        steps += stage_profile(small, h, w, opts.iters, card=card)
+        steps += decode_profile(small, h, w, opts.iters, card=card)
     for r in steps:
         print("PROFILE|" + json.dumps(r))
     for r in head_profile((DECODE_SMALL_BATCH, opts.batch), h, w, opts.iters,

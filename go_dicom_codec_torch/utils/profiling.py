@@ -84,9 +84,14 @@ def torch_trace(log_dir: str) -> Iterator[None]:
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    cuda = torch.cuda.is_available()
+    if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(
             activities=acts,
             on_trace_ready=torch.profiler.tensorboard_trace_handler(log_dir)):
-        yield
+        try:
+            yield
+        finally:
+            if cuda:   # the work in flight ends inside the trace
+                torch.cuda.synchronize()

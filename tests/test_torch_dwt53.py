@@ -320,18 +320,26 @@ def test_route_by_shape():
     # the fused stage takes every frame whose lines all fit, up to a line
     # of SMEM_MAX_BYTES / 4 words at its odd pitch
     for n in (58104, 58111):
-        assert port.fwd_schedule(n, 3, 5)[1][2] == n
-        assert port.fwd_schedule(3, n, 5)[0][2] == n
+        assert port.fwd_schedule(n, 3, 5)[2][0][1:3] == (n, 3)
+        assert port.fwd_schedule(3, n, 5)[2][0][1:3] == (3, n)
     assert port.fwd_schedule(58112, 3, 5) is None
     assert port.fwd_schedule(3, 65535, 5) is None
-    sched = port.fwd_schedule(512, 512, 5)
-    assert len(sched) == 10
-    assert sched[:2] == ((512, 1, 512, 512, 8, 1), (512, 512, 512, 1, 4, 1))
-    assert sched[-1] == (32, 512, 32, 1, 32, 1)
-    # odd origin, 1-sample windows still run (the ×2 rule)
-    assert port.fwd_schedule(1, 1, 2, 1, 1) == ((1, 1, 1, 1, 1, 0),
-                                                (1, 1, 1, 1, 1, 0))
-    assert port.fwd_schedule(1, 1, 3, 0, 0) == ()
+    # one row a level, finest first: levels 1-3 on the grid, 4 and 5 (64²
+    # and 32², one tile each) in one block a plane; each level reads the
+    # scratch area the level before wrote and writes the other
+    grid, block = port.ROW_KINDS["grid"], port.ROW_KINDS["block"]
+    tile, words, rows = port.fwd_schedule(512, 512, 5)
+    assert (tile, words) == (64, 256 * 256 + 128 * 128)
+    assert rows == ((grid, 512, 512, 1, 1, -1, 0),
+                    (grid, 256, 256, 1, 1, 0, 65536),
+                    (grid, 128, 128, 1, 1, 65536, 0),
+                    (block, 64, 64, 1, 1, 0, 65536),
+                    (block, 32, 32, 1, 1, 65536, -1))
+    # odd origin, 1-sample windows still run (the ×2 rule); windows of one
+    # sample at even parity both ways change nothing and have no row
+    assert port.fwd_schedule(1, 1, 2, 1, 1) == (
+        64, 0, ((block, 1, 1, 0, 0, -1, -1),))
+    assert port.fwd_schedule(1, 1, 3, 0, 0) == (64, 0, ())
 
 
 @pytest.mark.parametrize("source", ["dwt53.cu", "j2k_fwd_stage.cu",

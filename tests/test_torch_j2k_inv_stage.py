@@ -2,17 +2,23 @@
 package.
 
 A numpy model of one csrc/j2k_inv_stage.cu launch stands in for the kernel
-here. It takes the launch's arguments (the pass table with the head's
-extent, the epilogue, an int16 or int32 input) and does what the kernel
-does: the head levels on a tile of each plane's head window, then every
-grid pass of the table through the model of the shared-memory lifting body
-(test_torch_dwt53._pass_model), each pass reading the window earlier passes
-wrote from the coefficients and the rest from the input, then the epilogue
-(inverse RCT, unshift, clip and 16-bit cast). The coefficient buffer starts
-as garbage, as torch.empty leaves it. Through the model the kernel lane of
-the decode stage, of the in-place inverse 5/3 and of the decode pipeline is
-held against go_dicom_codec_tpu/pipeline.py and its 5/3, with the head's
-budget set to none, 64 and 4096 samples.
+here. It takes the launch's arguments (the level table with its block
+rows, the head; the epilogue; an int16 or int32 input) and runs what the
+kernel runs, tile by tile (csrc/lifting.cuh, modelled in
+test_torch_j2k_fwd_stage): each level, coarsest first, loads the packed
+coefficients of its tile and a halo of 2 through the symmetric fold — the
+LL from the scratch area the level above wrote (the coarsest level's from
+the input), the high bands from the input — undoes the row and column
+lifting by the kernel's steps over the kernel's ranges and stores the
+tile interleaved: to scratch, or at the finest level through the
+epilogue (inverse RCT of a group of components 0-2, unshift, clip and
+16-bit cast). Scratch and output start as garbage, as torch.empty leaves
+them; the model checks that every output sample is written once and that
+no level writes scratch words it reads. Through the model the kernel lane
+of the decode stage, of the in-place inverse 5/3 and of the decode
+pipeline is held against go_dicom_codec_tpu/pipeline.py and its 5/3, with
+the head's budget set to none, 64 and 4096 samples and the tile side cut
+to 4 and 8 samples (64 on the card).
 """
 
 import numpy as np
@@ -29,74 +35,112 @@ from go_dicom_codec_torch import pipeline as port
 from go_dicom_codec_torch.ops import dwt53
 from go_dicom_codec_torch.ops import j2k_inv_stage as stage
 from go_dicom_codec_torch.ops.mct import dc_level_shift, rct_forward
-from test_torch_dwt53 import KERNEL_LANE_CASES, _pass_model
+from test_torch_dwt53 import KERNEL_LANE_CASES
+# `tile`: the fixture of the stages' tile side, shared with those tests
+from test_torch_j2k_fwd_stage import (BLOCK, GARBAGE, GRID, HOPPER_SMEM,
+                                      Scratch, Tile, groups, n_tiles, phases,
+                                      tile, to_packed, xs)
 
-GARBAGE = 0x5A5A5A5A
+
+def _rct_inv(y, u, v):
+    g = y - ((u + v) >> 2)
+    return v + g, g, u + g
+
+
+def inv_launch_model(x, schedule, comps, rct, dc):
+    """One launch of csrc/j2k_inv_stage.cu on int32 coefficients x
+    [P, H, W]: the finest level's samples after the inverse RCT and + dc,
+    in int32, each written once."""
+    tile, words, rows = schedule
+    p, h, w = x.shape
+    frames = p // comps
+    out = np.full((p, h, w), GARBAGE, np.int32)
+    count = np.zeros((p, h, w), np.int64)
+    scr = Scratch(p, words)
+    if not rows:                   # no level: the epilogue of the input
+        f = x.reshape(frames, comps, h, w).copy()
+        if rct:
+            f[:, :3] = np.stack(_rct_inv(f[:, 0], f[:, 1], f[:, 2]), 1)
+        out[...] = f.reshape(p, h, w) + np.int32(dc)
+        count += 1
+    for r0, r1 in phases(rows):
+        g3 = rct and r1 == len(rows)
+        for plane0, nb in groups(frames, comps, g3):
+            for ri in range(r0, r1):
+                row = rows[ri]
+                for t in range(n_tiles(row, tile)):
+                    inv_tile_model(row, ri, tile, t, plane0, nb, g3, x, dc,
+                                   out, count, scr)
+    scr.check()
+    assert (count == 1).all(), "an output sample is not written once"
+    return out
+
+
+def inv_tile_model(row, ri, size, index, plane0, nb, g3, x, dc, out, count,
+                   scr):
+    """csrc/j2k_inv_stage.cu::inv_tile."""
+    _, w, h, even_x, even_y, in_off, out_off = row
+    lo_x, lo_y = 1 - even_x, 1 - even_y
+    snx, sny = (w + even_x) >> 1, (h + even_y) >> 1
+    t = Tile(size, w, h, index, nb)
+    qy, qx = t.ext(h, w)
+    py, px = to_packed(qy, sny, lo_y), to_packed(qx, snx, lo_x)
+    planes = plane0 + np.arange(nb)
+    vals = x[planes[:, None, None], py[None, :, None], px[None, None, :]]
+    ll = (py[:, None] < sny) & (px[None, :] < snx)
+    if in_off >= 0 and ll.any():
+        yy, xx = np.broadcast_to(py[:, None], ll.shape)[ll], \
+            np.broadcast_to(px[None, :], ll.shape)[ll]
+        for k, plane in enumerate(planes):
+            vals[k][ll] = scr.read(ri, scr.at(plane, in_off, yy, xx, snx))
+    t.fill(vals)
+    t.inv_lift(lo_x, lo_y, w, h)
+    oy, ox = np.arange(t.tey), np.arange(t.tex)
+    rec = t.buf[:, 2 + oy[:, None], xs(2 + ox, t.hx)[None, :]]
+    qy, qx = t.ty0 + oy[:, None], t.tx0 + ox[None, :]
+    qy, qx = np.broadcast_to(qy, rec.shape[1:]), np.broadcast_to(qx,
+                                                                 rec.shape[1:])
+    if out_off >= 0:
+        for k, plane in enumerate(planes):
+            scr.write(ri, scr.at(plane, out_off, qy, qx, w), rec[k])
+        return
+    if g3 and nb == 3:
+        rec = np.stack(_rct_inv(*rec))
+    for k, plane in enumerate(planes):
+        out[plane, qy, qx] = rec[k] + np.int32(dc)
+        count[plane, qy, qx] += 1
 
 
 def _inv_stage_model(launches):
     """A stand-in for _kernels.j2k_inv_stage; each launch's epilogue is
     appended to ``launches``."""
-    def launch(src, coef, schedule, comps, epilogue, mct=False, bits=16,
-               signed=False, out=None):
+    def launch(src, out, schedule, comps, epilogue, mct=False, bits=16,
+               signed=False):
         assert src.dtype in _kernels.INV_STAGE_DTYPES
-        assert coef.dtype == torch.int32 and coef.shape == src.shape
         assert src.dim() == 3 and src.shape[0] % comps == 0
-        head_w, head_h, head_rows, rows, final_w, final_h = schedule
-        assert len(head_rows) + len(rows) <= _kernels.STAGE_MAX_PASSES
-        assert (_kernels.inv_stage_smem_bytes(schedule)
-                <= _kernels.SMEM_MAX_BYTES)
+        assert out.shape == src.shape and out.data_ptr() != src.data_ptr()
+        tile_side, _, rows = schedule
+        mct = mct and epilogue != "coeffs"
+        rct = mct and comps >= 3
+        assert len(rows) <= _kernels.STAGE_MAX_ROWS
+        assert _kernels.stage_smem_bytes(tile_side, rct) <= HOPPER_SMEM
         launches.append(epilogue)
-        p, h, w = src.shape
-        wide = torch.as_tensor(src.numpy().astype(np.int32))  # a load of src
-        if coef.data_ptr() != src.data_ptr():
-            coef.fill_(GARBAGE)
-        # 1. the head: each plane's head window lifted on a tile
-        if head_w:
-            tile = wide[:, :head_h, :head_w].clone(
-                memory_format=torch.contiguous_format)
-            for n_lines, ls, n, es, lpb, even in head_rows:
-                _pass_model(tile, n_lines, ls, n, es, lpb, bool(even),
-                            inverse=True)
-            coef[:, :head_h, :head_w] = tile
-        # 2. the grid passes: what earlier passes wrote from coef, the rest
-        # from src
-        flat, flat_src = coef.view(p, -1), wide.view(p, -1)
-        for n_lines, ls, n, es, lpb, even, done_lines, done_n in rows:
-            j, i = np.arange(n_lines)[:, None], np.arange(n)[None, :]
-            addr = torch.as_tensor(j * ls + i * es)
-            done = torch.as_tensor((j < done_lines) & (i < done_n))
-            lines = flat.clone()
-            lines[:, addr] = torch.where(done, flat[:, addr],
-                                         flat_src[:, addr])
-            _pass_model(lines.view(p, h, w), n_lines, ls, n, es, lpb,
-                        bool(even), inverse=True)
-            flat[:, addr] = lines[:, addr]
-        # 3. the epilogue: the final window from coef, the rest from src
-        c = wide.numpy().copy()
-        c[:, :final_h, :final_w] = coef.numpy()[:, :final_h, :final_w]
-        if epilogue == "coeffs":
-            coef.copy_(torch.as_tensor(c))
-            return
-        px = c.reshape(p // comps, comps, h, w)
-        if mct and comps >= 3:     # int32 numpy arithmetic wraps, as torch
-            y, u, v = px[:, 0], px[:, 1], px[:, 2]
-            g = y - ((u + v) >> 2)
-            px = np.concatenate([np.stack([v + g, g, u + g], 1), px[:, 3:]],
-                                1)
-        if not signed:
-            px = px + np.int32(1 << (bits - 1))
-        px = px.reshape(p, h, w)
+        dc = 0 if signed or epilogue == "coeffs" else 1 << (bits - 1)
+        px = inv_launch_model(src.numpy().astype(np.int32), schedule, comps,
+                              rct, dc)
         if epilogue == "narrow":
             lo, hi = ((-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if signed
                       else (0, (1 << bits) - 1))
+            assert out.dtype == (torch.int16 if signed else torch.uint16)
             px = np.clip(px, lo, hi).astype(np.int16 if signed else np.uint16)
+        else:
+            assert out.dtype == torch.int32
         out.copy_(torch.as_tensor(px))
     return launch
 
 
 @pytest.fixture
-def kernel_lane(monkeypatch):
+def kernel_lane(monkeypatch, tile):
     """The stage's kernel lane on CPU tensors, through the model; the
     per-pass kernels must not launch. Yields the launches."""
     launches = []
@@ -187,8 +231,9 @@ def test_decode_stage_epilogue_matrix(c, mct, bits, signed, dtype, narrow,
 
 @pytest.mark.parametrize("levels", range(7))
 @pytest.mark.parametrize("origin", [(0, 0), (1, 0), (0, 1), (1, 1)])
-def test_decode_stage_levels_and_origins(levels, origin, head, kernel_lane,
-                                         rng):
+@pytest.mark.parametrize("tile", [4, 8, 64], indirect=True)
+def test_decode_stage_levels_and_origins(levels, origin, tile, head,
+                                         kernel_lane, rng):
     px = _frames(rng, (2, 3, 29, 23), 8)
     packed = _packed(px, 8, False, True, levels, *origin)
     got = _check_stage(packed.astype(np.int16), levels, *origin, 8, False,
@@ -208,16 +253,19 @@ def test_decode_stage_one_sample_windows(shape, narrow, head, kernel_lane,
     assert len(kernel_lane) == 1
 
 
+@pytest.mark.parametrize("tile", [64], indirect=True)
 def test_decode_stage_at_512_with_each_head(kernel_lane, set_head, rng):
     """[1, 1, 512, 512] int16 → uint16 at the budgets measured on the
-    card: none, 64² and 128²."""
+    card: none, 64² and 128², at the card's tile side."""
     px = _frames(rng, (1, 1, 512, 512), 12)
     packed = _packed(px, 12, False, False, 5, 0, 0).astype(np.int16)
     want = np.asarray(ref._j2k_decode_device_stage(
         jnp.asarray(packed), 5, 0, 0, 12, False, False, True))
     for budget, extent in ((0, 0), (64 * 64, 64), (128 * 128, 128)):
         set_head(budget)
-        assert dwt53.inv_schedule(512, 512, 5)[:2] == (extent, extent)
+        rows = dwt53.inv_schedule(512, 512, 5)[2]
+        assert max([r[1] for r in rows if r[0] == BLOCK], default=0) \
+            == extent
         got = port._j2k_decode_device_stage(torch.as_tensor(packed), 5, 0, 0,
                                             12, False, False, True)
         _eq(got.to(torch.int32).numpy(), want.astype(np.int32))
@@ -356,35 +404,35 @@ def test_refused_launch_propagates_through_the_decode_adapter(monkeypatch,
 # ---- routes and lanes ---------------------------------------------------------
 
 def test_inv_schedule_route_by_shape():
-    """The head's extent, the grid passes and the route follow from the
-    shape alone, before any launch."""
-    head_w, head_h, head_rows, rows, final_w, final_h = \
-        dwt53.inv_schedule(512, 512, 5)
-    # levels 5 and 4 (32² and 64² windows) in the head, coarsest first
-    assert (head_w, head_h) == (64, 64)
-    assert head_rows == ((32, 64, 32, 1, 32, 1), (32, 1, 32, 64, 32, 1),
-                         (64, 64, 64, 1, 32, 1), (64, 1, 64, 64, 32, 1))
-    # levels 3, 2, 1 on the grid, each pass reading what the last wrote
-    assert len(rows) == 6
-    assert rows[0] == (128, 512, 128, 1, 16, 1, 64, 64)
-    assert rows[1] == (128, 1, 128, 512, 8, 1, 128, 128)
-    assert rows[-1] == (512, 1, 512, 512, 8, 1, 512, 512)
-    assert (final_w, final_h) == (512, 512)
-    assert _kernels.inv_stage_smem_bytes(dwt53.inv_schedule(512, 512, 5)) \
-        == 64 * 64 * 4 + 32 * 65 * 4
+    """The head, the grid levels, the scratch areas and the route follow
+    from the shape alone, before any launch."""
+    tile, words, rows = dwt53.inv_schedule(512, 512, 5)
+    assert tile == 64
+    # levels 5 and 4 (32² and 64² windows) in the head, coarsest first,
+    # then levels 3, 2, 1 on the grid: 4 phases, 3 grid barriers; each
+    # level reads the area the level above wrote and writes the other
+    assert rows == ((BLOCK, 32, 32, 1, 1, -1, 65536),
+                    (BLOCK, 64, 64, 1, 1, 65536, 0),
+                    (GRID, 128, 128, 1, 1, 0, 65536),
+                    (GRID, 256, 256, 1, 1, 65536, 0),
+                    (GRID, 512, 512, 1, 1, 0, -1))
+    assert words == 256 * 256 + 128 * 128
+    assert len(phases(rows)) == 4
+    assert _kernels.stage_smem_bytes(tile, False) == 68 * 68 * 4
+    assert _kernels.stage_smem_bytes(tile, True) == 3 * 68 * 68 * 4
     # the longest line the stage holds, then the long-line route
     for n in (58104, 58111):
-        assert dwt53.inv_schedule(n, 3, 5)[3][-2][2] == n   # level-1 rows
-        assert dwt53.inv_schedule(3, n, 5)[3][-1][2] == n   # its columns
+        assert dwt53.inv_schedule(n, 3, 5)[2][-1][1:3] == (n, 3)
+        assert dwt53.inv_schedule(3, n, 5)[2][-1][1:3] == (3, n)
     for n in (58112, 60001, 65535):
         assert dwt53.inv_schedule(n, 3, 5) is None
         assert dwt53.inv_schedule(3, n, 5) is None
     # no level to run; 1-sample windows at odd origins still run
-    assert dwt53.inv_schedule(7, 5, 0) == (0, 0, (), (), 0, 0)
+    assert dwt53.inv_schedule(7, 5, 0) == (64, 0, ())
     assert dwt53.inv_schedule(1, 1, 2, 1, 1) == (
-        1, 1, ((1, 1, 1, 1, 1, 0), (1, 1, 1, 1, 1, 0)), (), 1, 1)
+        64, 0, ((BLOCK, 1, 1, 0, 0, -1, -1),))
     assert dwt53._inv_schedule(1, 1, 2, 1, 1, 0) == (
-        0, 0, (), ((1, 1, 1, 1, 1, 0, 0, 0), (1, 1, 1, 1, 1, 0, 1, 1)), 1, 1)
+        64, 0, ((GRID, 1, 1, 0, 0, -1, -1),))
 
 
 def test_long_lines_take_the_per_pass_lane(monkeypatch, rng):
