@@ -19,10 +19,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    with the RCT fused, in all three epilogues; the fused inverse stage
    bit-exact at [32, 1, 512, 512] int16 → uint16 and [8, 3, 512, 512] with
    the RCT, on int16 and int32 input, in all three epilogues; the fused
-   forward and inverse 5/3, the forward and inverse lifting passes
-   bit-exact at [32, 512, 512] × 5 levels and on the stages' launch-model
-   matrix (odd shapes and every shape up to 8×8 at every origin and
-   levels 0-6 at the card's tile side of 64; odd shapes, rows of whole
+   forward and inverse 5/3 bit-exact at [32, 512, 512] × 5 levels and on
+   the stages' launch-model matrix (odd shapes and every shape up to 8×8
+   at every origin and levels 0-6 at the card's tile side of 64; odd shapes, rows of whole
    16-byte vectors and one-sample windows at tiles of 8, with head budgets
    of none, 64 and 4096 samples), both stages' epilogues (the forward's
    also with the RCT fused) on those too; the islow
@@ -33,26 +32,26 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 4. drives the main path at full size: 32 gray 512×512 12-bit frames and 8
    RGB 512×512 8-bit frames through encode transform → narrow fetch →
    decode stage, each bit-exact back to its input; frames with a side of
-   58111 samples (the most the fused stages' shared memory holds: one
-   launch each way) and of 60001 and 65535 (the lifting passes' long-line
-   route) forward and back, bit-exact against the plain lane; then the
-   device bench; every kernel, and the long-line route of both lifting
-   passes, must have launched in that run;
+   58111, 60001 and 65535 samples along rows and along columns, thin ones
+   of one and two samples across, an odd origin (``LONG_SHAPES``) forward
+   and back, one stage launch each way bit-exact against the plain lane;
+   the narrow stages of 16- and 8-bit samples 58111, 60000 and 60001 wide
+   and of an RGB frame 60001 wide with the RCT fused; then the device
+   bench; every kernel must have launched in that run;
 5. drives the codec path on the card through ``make_registry(cuda:0)``,
    once the native T1/T2 library (g++, built beside the nvcc build) is
    loaded: 32 gray 512×512 12-bit frames and 8 RGB 512×512 8-bit frames
    through .90, 8 gray 12-bit frames through .91. Lossless codestreams
    must equal the native host lane's byte for byte and decode bit-exact,
    the lossy decode lie within ±1 of the host lane's; the fused forward
-   stage must launch once per encode chunk and no forward lifting pass
-   beside it (an RGB chunk's stage is one device operation, and no RGB
-   call runs the plain-torch RCT), the fused inverse stage once per decode
-   chunk and no inverse lifting pass, and the pipelines must have run on
-   the device engine
+   stage must launch once per encode chunk and no other kernel beside it
+   (an RGB chunk's stage is one device operation, and no RGB call runs the
+   plain-torch RCT), the fused inverse stage once per decode chunk and no
+   other kernel, and the pipelines must have run on the device engine
    (their ``pipeline.*`` events; the adapters' scalar fallback would hide
    a failure), and no call may launch the float DCT. Two gray 16 × 60001
-   frames round-trip through .90 the same way, through the lifting
-   passes' long-line route. Part-2 matrix streams (.92/.93) take the
+   frames round-trip through .90 the same way, one stage launch a chunk
+   each way and no other kernel. Part-2 matrix streams (.92/.93) take the
    scalar codec's device branches and must equal the same codec on the
    CPU. It also forces the
    int16-overflow redo once. Encode and decode frames/s of the
@@ -86,7 +85,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    ``encode_frames_pipelined`` on cuda:0 and the host engine's and whose
    ``decode_frames_sharded`` is bit-exact, with exactly one fused forward
    stage launch per tile and shard on encode, one fused inverse stage
-   launch per tile and shard on decode and no lifting pass or DCT; 8 RGB
+   launch per tile and shard on decode and no other kernel; 8 RGB
    512² 8-bit frames in four 256² tiles equal to the scalar
    ``J2KEncoder`` on cuda:0, decoding bit-exact with the RCT fused into
    the inverse stage; 8 gray 12-bit frames lossy at quality 85 whose
@@ -126,12 +125,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    of its input timed beside it; the islow kernels' launches from the
    JPEG phase, with the forward of 12-bit samples and the inverse of one
    frame timed beside them; the forward stage's with its RGB narrow stage
-   beside it; the lifting passes' with a
-   ``long_route`` entry: its launches in the main path and the level-1
-   pass of [2, 16, 65535] and [2, 65535, 16] timed against its plain
-   version and bound; the fused stages' ``mesh_launches``; every kernel's
-   ``tools_launches`` of the fuzz, transcode and benchmarks runs), and as
-   its last line
+   beside it; both fused stages' with their narrow stage of [2, 16, 65535]
+   (``long``); the fused stages' ``mesh_launches``; every kernel's
+   ``tools_launches`` of the fuzz, transcode and benchmarks runs), after a
+   line that names the retired lifting-pass kernels and why, and as its
+   last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, exits non-zero and prints no ok line. Imports no JAX.
@@ -158,7 +156,7 @@ from go_dicom_codec_torch.ops.dct8x8 import (LUMA_QUANT, _basis,
                                             encode_plane_to_zigzag, quantize,
                                             scale_quant_table, to_blocks)
 from go_dicom_codec_torch.ops import dwt53
-from go_dicom_codec_torch.ops.dwt53 import (_level_passes, _level_windows,
+from go_dicom_codec_torch.ops.dwt53 import (_level_windows,
                                             fwd53_multilevel_,
                                             fwd53_multilevel_plain_,
                                             inv53_multilevel_,
@@ -168,8 +166,7 @@ from go_dicom_codec_torch.ops.fdct8x8_quant import (encode_plane_blocks,
                                                     fdct8x8_quant,
                                                     fdct8x8_quant_plain)
 from go_dicom_codec_torch.ops.j2k_fwd_stage import fwd_stage, fwd_stage_plain
-from go_dicom_codec_torch.ops.j2k_inv_stage import (inv53_passes_, inv_stage,
-                                                    inv_stage_plain)
+from go_dicom_codec_torch.ops.j2k_inv_stage import inv_stage, inv_stage_plain
 from go_dicom_codec_torch.ops.jpeg_islow import (fdct_islow, idct_islow,
                                                  plane_dtype)
 from go_dicom_codec_torch.ops.mct import dc_level_shift
@@ -185,10 +182,6 @@ DCT_SHIFT = 2048
 SOURCES = {
     "fdct8x8_quant": ("cuda", "go_dicom_codec_torch/csrc/fdct8x8_quant.cu",
                       "go_dicom_codec_tpu/ops/pallas_dct.py:83"),
-    "dwt53_fwd_pass": ("cuda", "go_dicom_codec_torch/csrc/dwt53.cu",
-                       "go_dicom_codec_tpu/ops/dwt53.py:71"),
-    "dwt53_inv_pass": ("cuda", "go_dicom_codec_torch/csrc/dwt53.cu",
-                       "go_dicom_codec_tpu/ops/dwt53.py:112"),
     "j2k_fwd_stage": ("cuda", "go_dicom_codec_torch/csrc/j2k_fwd_stage.cu",
                       "go_dicom_codec_tpu/pipeline.py:43 (RGB: :56, :368)"),
     "j2k_inv_stage": ("cuda", "go_dicom_codec_torch/csrc/j2k_inv_stage.cu",
@@ -217,10 +210,23 @@ SATURATE = (3e9, -3e9, float("nan"), float("inf"), float("-inf"),
 ISLOW_RAGGED = ((3, 37, 45), (1, 1, 1), (2, 8, 4095), (1, 4095, 8))
 ISLOW_PROFILES = ((8, 128, np.uint8), (12, 2048, np.uint16))
 ISLOW_QUALITIES = (1, 50, 90, 100)
-# the longest lines the fused stage holds, then lines that take the
-# lifting passes' long-line route
-LONG_SHAPES = ((1, 8, 58111), (1, 58111, 8), (1, 8, 60001), (1, 60001, 8),
-               (2, 16, 65535))
+# frames with long sides (DICOM's longest is 65535), along rows and along
+# columns, thin ones (one and two samples across) and an odd origin, as
+# (shape, origin): one launch of a fused stage each way, whatever the
+# line length
+LONG_SHAPES = (((1, 8, 58111), (0, 0)), ((1, 58111, 8), (0, 0)),
+               ((1, 8, 60001), (0, 0)), ((1, 60001, 8), (0, 0)),
+               ((2, 16, 65535), (0, 0)), ((2, 65535, 16), (0, 0)),
+               ((1, 1, 65535), (0, 0)), ((1, 65535, 2), (0, 0)),
+               ((1, 8, 60001), (1, 1)))
+# widths of the narrow stages' long-line checks: odd (the forward stage
+# loads a sample at a time) and whole 16-byte vectors of 16- and 8-bit
+# samples (it loads 16 bytes at a time)
+NARROW_WIDTHS = (58111, 60000, 60001)
+# the kernels of csrc/dwt53.cu, retired: every line length runs in the
+# fused stages' tile pass
+RETIRED = {"dwt53_fwd_pass": "go_dicom_codec_tpu/ops/dwt53.py:71",
+           "dwt53_inv_pass": "go_dicom_codec_tpu/ops/dwt53.py:112"}
 
 
 def check(cond: bool, what: str) -> None:
@@ -362,22 +368,17 @@ def saturation(dev, qt) -> None:
 
 def compare_dwt(x: torch.Tensor, levels: int, x0: int = 0,
                 y0: int = 0) -> dict:
-    """The fused forward stage and the forward lifting passes against the
-    plain lane, the fused inverse stage and the inverse lifting passes
-    against the plain inverse, and the stages' epilogues against their
-    plain versions (the forward's also with the RCT fused, on the first
+    """The fused forward stage against the plain lane, the fused inverse
+    stage against the plain inverse, and the stages' epilogues against
+    their plain versions (the forward's also with the RCT fused, on the first
     three planes as one frame; the inverse's with the planes as the
     components of one frame, RCT on, int16 and int32 input); all
     bit-exact. Returns each kernel's max |d|."""
     fwd_p = fwd53_multilevel_plain_(x.clone(), levels, x0, y0)
     errs = {"j2k_fwd_stage": max_abs_diff(
                 fwd53_multilevel_(x.clone(), levels, x0, y0), fwd_p),
-            "dwt53_fwd_pass": max_abs_diff(device_bench.fwd53_passes_(
-                x.clone(), levels, x0, y0), fwd_p),
             "j2k_inv_stage": max_abs_diff(
-                inv53_multilevel_(fwd_p.clone(), levels, x0, y0), x),
-            "dwt53_inv_pass": max_abs_diff(
-                inv53_passes_(fwd_p.clone(), levels, x0, y0), x)}
+                inv53_multilevel_(fwd_p.clone(), levels, x0, y0), x)}
     rgb = x[None, :3] if x.shape[0] >= 3 else None
     for src, mct in ((x, False), (rgb, True)):
         for epilogue in ("narrow", "stats") if src is not None else ():
@@ -483,7 +484,7 @@ def compare_dwt_all(rng, dev) -> dict:
                     n += len(small)
     finally:
         stage_tables(64, 64 * 64)
-    print(f"5/3 fused stages, lifting passes and plain lane agree on "
+    print(f"5/3 fused stages and plain lane agree on "
           f"{n} cases (tiles of 64 and 8, head budgets none, 64 and 4096)")
     return {k: max(e[k] for e in errs) for k in errs[0]}
 
@@ -560,41 +561,87 @@ def compare_islow(dev) -> dict:
     return errs
 
 
+def launched(fn):
+    """fn's result and the kernel launches it made, read as differences:
+    the counts are not reset."""
+    before = dict(_kernels.launch_counts)
+    r = fn()
+    torch.cuda.synchronize()
+    return r, {k: v - before[k] for k, v in _kernels.launch_counts.items()}
+
+
+def only(lc: dict, name: str, n: int) -> bool:
+    """True when the launches ``lc`` are ``n`` of kernel ``name`` and none
+    of any other."""
+    return lc[name] == n and not any(v for k, v in lc.items() if k != name)
+
+
 def long_lines(rng, dev) -> None:
-    """Frames with a side of 58111 samples (the fused stages, at Hopper's
-    whole shared memory a block: one launch each way) and over it (the
-    lifting passes' long-line route), forward and back, bit-exact against
-    the plain lane; then the pipelines' narrow stages on the longest."""
-    for shape in LONG_SHAPES:
+    """``LONG_SHAPES`` forward and back in place, each way one launch of a
+    fused stage and no other kernel, bit-exact against the plain lane;
+    the narrow forward stage of 16- and 8-bit samples ``NARROW_WIDTHS``
+    wide, then the narrow decode stage; the pipelines' narrow stages of
+    [2, 16, 65535]; an RGB frame 60001 wide with the DC shift and RCT
+    fused, forward and back."""
+    for shape, (x0, y0) in LONG_SHAPES:
         x = torch.as_tensor(rng.integers(-2048, 2048, shape, dtype=np.int32),
                             device=dev)
-        fwd = fwd53_multilevel_(x.clone(), LEVELS)
-        check(fwd.equal(fwd53_multilevel_plain_(x.clone(), LEVELS)),
+        fwd, lc = launched(lambda: fwd53_multilevel_(x.clone(), LEVELS, x0,
+                                                     y0))
+        check(only(lc, "j2k_fwd_stage", 1), f"long-line forward {shape}: "
+              f"launches {lc}")
+        check(fwd.equal(fwd53_multilevel_plain_(x.clone(), LEVELS, x0, y0)),
               f"long-line forward {shape} differs from the plain lane")
-        before = dict(_kernels.launch_counts)
-        inv = inv53_multilevel_(fwd.clone(), LEVELS)
-        fused = _kernels.launch_counts["j2k_inv_stage"] - before[
-            "j2k_inv_stage"]
-        passes = _kernels.launch_counts["dwt53_inv_pass"] - before[
-            "dwt53_inv_pass"]
-        check((fused, passes == 0) == ((1, True) if max(shape) <= 58111
-                                       else (0, False)),
-              f"long-line inverse {shape}: {fused} stage launches, "
-              f"{passes} passes")
-        check(inv.equal(inv53_multilevel_plain_(fwd.clone(), LEVELS))
+        inv, lc = launched(lambda: inv53_multilevel_(fwd.clone(), LEVELS, x0,
+                                                     y0))
+        check(only(lc, "j2k_inv_stage", 1), f"long-line inverse {shape}: "
+              f"launches {lc}")
+        check(inv.equal(inv53_multilevel_plain_(fwd.clone(), LEVELS, x0, y0))
               and inv.equal(x), f"long-line inverse {shape} differs")
-    x16 = torch.as_tensor(rng.integers(0, 1 << 12, LONG_SHAPES[-1],
+    for w in NARROW_WIDTHS:
+        for bits, dtype in ((12, np.uint16), (8, np.uint8)):
+            x = torch.as_tensor(rng.integers(0, 1 << bits, (2, 8, w))
+                                .astype(dtype), device=dev)
+            shift = 1 << (bits - 1)
+            got, lc = launched(lambda: fwd_stage(x, shift, LEVELS,
+                                                 epilogue="narrow"))
+            want = fwd_stage_plain(x, shift, LEVELS, epilogue="narrow")
+            check(only(lc, "j2k_fwd_stage", 1) and got[0].equal(want[0])
+                  and got[1].equal(want[1]),
+                  f"the narrow stage of {bits}-bit [2, 8, {w}] differs")
+            px, lc = launched(lambda: P._j2k_decode_device_stage(
+                got[0][:, None], LEVELS, 0, 0, bits, False, mct=False,
+                narrow=True))
+            check(only(lc, "j2k_inv_stage", 1)
+                  and px[:, 0].to(torch.int32).equal(x.to(torch.int32)),
+                  f"the decode stage of {bits}-bit [2, 8, {w}] differs")
+    x16 = torch.as_tensor(rng.integers(0, 1 << 12, (2, 16, 65535),
                                        dtype=np.uint16), device=dev)
     got = P._pipeline_device_stage(x16, 12, False, LEVELS, narrow=True)
     want = fwd_stage_plain(x16, 2048, LEVELS, epilogue="narrow")
     check(got[0].equal(want[0]) and got[1].equal(want[1]),
-          "the narrow stage of a long-line frame differs")
+          "the pipelines' narrow stage of a long-line frame differs")
     px = P._j2k_decode_device_stage(got[0][:, None], LEVELS, 0, 0, 12, False,
                                     mct=False, narrow=True)
     check(px[:, 0].equal(x16), "the decode stage of a long-line frame differs")
-    print(f"long lines {list(LONG_SHAPES)}: forward, inverse and the narrow "
-          f"stages == plain lane; long-route launches "
-          f"{json.dumps(_kernels.long_route_counts)}")
+    rgb = torch.as_tensor(rng.integers(0, 256, (1, 3, 8, 60001))
+                          .astype(np.uint8), device=dev)
+    got, lc = launched(lambda: fwd_stage(rgb, 128, LEVELS, epilogue="narrow",
+                                         mct=True))
+    want = fwd_stage_plain(rgb, 128, LEVELS, epilogue="narrow", mct=True)
+    check(only(lc, "j2k_fwd_stage", 1) and got[0].equal(want[0])
+          and got[1].equal(want[1]),
+          "the RGB narrow stage of [1, 3, 8, 60001] differs")
+    px, lc = launched(lambda: P._j2k_decode_device_stage(
+        got[0], LEVELS, 0, 0, 8, False, mct=True, narrow=True))
+    check(only(lc, "j2k_inv_stage", 1)
+          and px.to(torch.int32).equal(rgb.to(torch.int32)),
+          "the RGB decode stage of [1, 3, 8, 60001] differs")
+    print(f"long lines {[s for s, _ in LONG_SHAPES]} (the last at origin "
+          f"(1, 1)): one stage launch each way, == plain lane; narrow "
+          f"stages of 12- and 8-bit [2, 8, w], w in {list(NARROW_WIDTHS)}, "
+          f"of the pipelines at [2, 16, 65535] and of RGB [1, 3, 8, 60001] "
+          f"(RCT fused) == plain, decodes bit-exact")
 
 
 def round_trip_gray(rng, dev) -> None:
@@ -657,44 +704,38 @@ def timing(fn, n: int = 1) -> dict:
             "device_ops": ops}
 
 
+def lifted(shape) -> int:
+    """The samples each 1D lifting pass of a 5/3 of ``LEVELS`` levels
+    touches, summed over its passes (one along each side longer than one
+    sample a level), for planes [..., H, W]."""
+    planes = int(np.prod(shape[:-2]))
+    return sum(planes * h * w * ((h > 1) + (w > 1))
+               for w, h, _, _ in _level_windows(shape[-1], shape[-2], LEVELS,
+                                                0, 0))
+
+
 def time_kernels(dev, rng, qt) -> dict:
     """Each kernel's times (``timing``), plain ms, bound ms and bound by
-    at the main path's shapes. The lifting passes: the 5-level transform
-    of [B, H, W] through them, in place on one buffer, over the passes it
-    launches (each pass reads and writes its window once, ~4 operations a
-    sample). The fused forward stage: the pipelines' narrow stage of
-    [B, H, W] uint16 (reads 2 bytes and writes 2 a sample; ~4 operations
-    a sample and pass, 3 in the epilogue), and beside it the RGB narrow
-    stage of [RGB_FRAMES, 3, H, W] uint8 (reads 1 byte and writes 2 a
-    sample; the RCT ~5 operations a sample). The fused inverse stage: the
+    at the main path's shapes. The fused forward stage: the pipelines'
+    narrow stage of [B, H, W] uint16 (reads 2 bytes and writes 2 a sample;
+    ~4 operations a sample and 1D pass of a level, 3 in the epilogue), and
+    beside it the RGB narrow stage of [RGB_FRAMES, 3, H, W] uint8 (reads 1
+    byte and writes 2 a sample; the RCT ~5 operations a sample) and the
+    narrow stage of [2, 16, 65535] (``long``). The fused inverse stage: the
     pipeline's narrow decode stage of [B, 1, H, W] int16 coefficients (2
     bytes in and 2 out a sample; ~4 operations a sample and pass, 4 in the
-    epilogue). The DCT: [B, H, W] int32 in and out, 35 operations a
-    sample, beside an x+1 copy of the same tensor. The islow kernels at
+    epilogue), and beside it that of [2, 1, 16, 65535] (``long``). The
+    DCT: [B, H, W] int32 in and out, 35 operations a sample, beside an x+1
+    copy of the same tensor. The islow kernels at
     the 8-bit profile: the forward of [B, H, W] uint8 samples to int32
     coefficients (about 40 int32 operations a sample, a divide among
     them), the inverse of those back to uint8 (about 32); beside them the
     forward of 12-bit uint16 samples (the .51 encode) and the inverse of
     one frame (one decode launch)."""
-    buf = torch.as_tensor(rng.integers(-2048, 2048, (B, H, W),
-                                       dtype=np.int32), device=dev)
-    window = sum(B * h * w * len(_level_passes(h, w, True, True))
-                 for w, h, _, _ in _level_windows(W, H, LEVELS, 0, 0))
+    x16 = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W),
+                                       dtype=np.uint16), device=dev)
+    window = lifted(x16.shape)
     t = {}
-    for name, k, p in (("dwt53_fwd_pass", device_bench.fwd53_passes_,
-                        fwd53_multilevel_plain_),
-                       ("dwt53_inv_pass", inv53_passes_,
-                        inv53_multilevel_plain_)):
-        before = _kernels.launch_counts[name]
-        k(buf, LEVELS)
-        n = _kernels.launch_counts[name] - before
-        tk = timing(lambda: k(buf, LEVELS), n)
-        p_ms = device_bench.time_ms(lambda: p(buf, LEVELS))[0]
-        print(f"{name}: {n} passes per {LEVELS}-level transform, "
-              f"{tk['ms'] * n:.4f} ms kernel, {p_ms:.4f} ms plain")
-        t[name] = {**tk, "plain_ms": p_ms / n,
-                   **bound(8 * window / n, 4 * window / n)}
-    x16 = buf.to(torch.uint16)
     t["j2k_fwd_stage"] = {
         **timing(lambda: fwd_stage(x16, 2048, LEVELS, epilogue="narrow")),
         "plain_ms": device_bench.time_ms(lambda: fwd_stage_plain(
@@ -715,8 +756,24 @@ def time_kernels(dev, rng, qt) -> dict:
         "plain_ms": device_bench.time_ms(
             lambda: inv_stage_plain(pk, *args))[0],
         **bound(4 * pk.numel(), 4 * window + 4 * pk.numel())}
+    long16 = torch.as_tensor(rng.integers(0, 1 << 12, (2, 16, 65535),
+                                          dtype=np.uint16), device=dev)
+    long_pk = fwd_stage(long16, 2048, LEVELS, epilogue="narrow")[0][:, None]
+    t["j2k_fwd_stage"]["long"] = {
+        **timing(lambda: fwd_stage(long16, 2048, LEVELS, epilogue="narrow")),
+        "plain_ms": device_bench.time_ms(lambda: fwd_stage_plain(
+            long16, 2048, LEVELS, epilogue="narrow"))[0],
+        **bound(4 * long16.numel() + 4,
+                4 * lifted(long16.shape) + 3 * long16.numel())}
+    t["j2k_inv_stage"]["long"] = {
+        **timing(lambda: inv_stage(long_pk, *args)),
+        "plain_ms": device_bench.time_ms(
+            lambda: inv_stage_plain(long_pk, *args))[0],
+        **bound(4 * long_pk.numel(),
+                4 * lifted(long16.shape) + 4 * long_pk.numel())}
     for tk in (t["j2k_fwd_stage"], t["j2k_fwd_stage"]["rgb"],
-               t["j2k_inv_stage"]):
+               t["j2k_fwd_stage"]["long"], t["j2k_inv_stage"],
+               t["j2k_inv_stage"]["long"]):
         check(tk["device_ms"] is None or tk["device_ops"] == 1,
               f"a fused stage call ran {tk['device_ops']} device operations")
     x = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W), dtype=np.int32),
@@ -756,23 +813,6 @@ def time_kernels(dev, rng, qt) -> dict:
     t["jpeg_fdct_islow"]["uint16_12bit"] = t.pop("uint16_12bit")
     t["jpeg_idct_islow"]["per_frame"] = t.pop("per_frame")
     return t
-
-
-def time_long_route() -> dict:
-    """The lifting passes' long-line route alone: the level-1 pass along
-    the long side of each device_bench.LONG_SHAPES frame, its kernel lane
-    (the window's torch copy and one launch) and plain version timed as
-    ``time_kernels`` times a pass, against its bound (the window read and
-    written once, ~4 operations a sample). {name: {shape key: times}}."""
-    out = {"dwt53_fwd_pass": {}, "dwt53_inv_pass": {}}
-    for s in device_bench.long_pass_steps(SEED):
-        k_ms = device_bench.time_ms(s["kernel"])[0]
-        p_ms = device_bench.time_ms(s["plain"])[0]
-        name = "dwt53_inv_pass" if s["inverse"] else "dwt53_fwd_pass"
-        out[name][f"{s['axis']} {s['shape']}"] = {
-            "ms": k_ms, "plain_ms": p_ms,
-            **bound(8 * s["samples"], 4 * s["samples"])}
-    return out
 
 
 # ---- the codec path -----------------------------------------------------
@@ -1007,14 +1047,12 @@ def codec_phase(rng, dev, card: str) -> dict:
               f"{name}: registry decode is not bit-exact")
         check(np.array_equal(host_dec.reshape(frames.shape), frames),
               f"{name}: host lane decode is not bit-exact")
-        check(lc["encode"]["j2k_fwd_stage"] == chunks
-              and lc["encode"]["dwt53_fwd_pass"] == 0,
+        check(only(lc["encode"], "j2k_fwd_stage", chunks),
               f"{name}: the encode did not run one j2k_fwd_stage launch a "
-              f"chunk ({chunks}) and no forward lifting pass")
-        check(lc["decode"]["j2k_inv_stage"] == dchunks
-              and lc["decode"]["dwt53_inv_pass"] == 0,
+              f"chunk ({chunks}) and no other kernel")
+        check(only(lc["decode"], "j2k_inv_stage", dchunks),
               f"{name}: the decode did not run one j2k_inv_stage launch a "
-              f"chunk ({dchunks}) and no inverse lifting pass")
+              f"chunk ({dchunks}) and no other kernel")
         launches[name] = lc
         if rgb:
             rgb_chunk_ops(registry, frames, bits, chunks, dev)
@@ -1022,21 +1060,24 @@ def codec_phase(rng, dev, card: str) -> dict:
               f"decode bit-exact; launches {json.dumps(lc)}")
         measured[name] = rates(host_checked(calls), n)
 
-    # frames with a side over 58111 samples: the lifting passes' long-line
-    # route inside the registry calls, byte-identical to the host lane
+    # frames 60001 samples wide: the fused stages inside the registry
+    # calls, one launch a chunk, byte-identical to the host lane
     frames = phantom(rng, 2, 12, shape=(16, 60001))
     streams, decoded, lc, _, runs = registry_round_trip(
         registry, host_registry, gdc.uids.JPEG_2000_LOSSLESS, frames, 12,
         False)
+    chunks = profiling.EVENTS["pipeline.encode"]["chunks"]
+    dchunks = profiling.EVENTS["pipeline.decode"]["chunks"]
     host_streams, host_dec = host_lane(frames, 12, dev, streams)
     check(runs == {"pipeline.encode": (1, "device"),
                    "pipeline.decode": (1, "device")}
           and streams == host_streams and np.array_equal(decoded, frames)
           and np.array_equal(host_dec.reshape(frames.shape), frames),
           f"long lines: the .90 round trip failed {runs}")
-    check(lc["encode"]["dwt53_fwd_pass"] > 0
-          and lc["decode"]["dwt53_inv_pass"] > 0,
-          f"long lines: the lifting passes did not launch {lc}")
+    check(only(lc["encode"], "j2k_fwd_stage", chunks)
+          and only(lc["decode"], "j2k_inv_stage", dchunks),
+          f"long lines: not one stage launch a chunk ({chunks}, {dchunks}) "
+          f"and no other kernel {lc}")
     print(f"long-line .90 [2, 16, 60001]: codestreams == host lane, decode "
           f"bit-exact; launches {json.dumps(lc)}")
 
@@ -1201,19 +1242,18 @@ def htj2k_phase(rng, dev, registry, host_registry) -> dict:
               and np.array_equal(host_dec, frames),
               f"{uid}: a decode is not bit-exact")
         enc, dec = lc["encode"], lc["decode"]
-        check(enc["j2k_fwd_stage"] == B and enc["dwt53_fwd_pass"] == 0,
+        check(only(enc, "j2k_fwd_stage", B),
               f"{uid}: the encode did not run one j2k_fwd_stage launch a "
-              f"frame and no forward pass {enc}")
-        check(dec["j2k_inv_stage"] == dchunks and dec["dwt53_inv_pass"] == 0,
+              f"frame and no other kernel {enc}")
+        check(only(dec, "j2k_inv_stage", dchunks),
               f"{uid}: the decode did not run one j2k_inv_stage launch a "
-              f"chunk ({dchunks}) and no inverse pass {dec}")
+              f"chunk ({dchunks}) and no other kernel {dec}")
         launches[uid] = lc
         print(f"HTJ2K {uid} [{B}, {H}, {W}] 12-bit: codestreams == host "
               f"engine, decodes bit-exact; j2k_fwd_stage launches per "
               f"encode {enc['j2k_fwd_stage']} (one a frame), j2k_inv_stage "
               f"per decode {dec['j2k_inv_stage']} ({dchunks} chunks of 8), "
-              f"lifting passes {enc['dwt53_fwd_pass'] + dec['dwt53_inv_pass']}"
-              f", DCT {enc['fdct8x8_quant'] + dec['fdct8x8_quant']}; "
+              f"no other kernel; "
               f"{sum(len(s) for s in streams) / B:.0f} bytes/frame")
         out_calls = out_calls or calls
     frames = phantom(rng, RGB_FRAMES, 12)
@@ -1276,8 +1316,9 @@ def golden_phase(registry) -> int:
             n += 1
     check(n == 14, f"{n} golden codestreams, not 14")
     inv = _kernels.launch_counts["j2k_inv_stage"]
-    check(inv == n and _kernels.launch_counts["dwt53_inv_pass"] == 0,
-          f"golden decodes: {inv} inverse stage launches for {n} streams")
+    check(only(_kernels.launch_counts, "j2k_inv_stage", n),
+          f"golden decodes: launches {_kernels.launch_counts} for {n} "
+          f"streams, want {n} of the inverse stage alone")
     print(f"OpenJPH golden codestreams: {n} decoded through the card "
           f"registry == input.raw; launches "
           f"{json.dumps(dict(_kernels.launch_counts))}")
@@ -1496,11 +1537,11 @@ def counted(fn):
 
 
 def check_stage_launches(label: str, lc: dict, fwd: int, inv: int) -> None:
-    """The fused stages launched ``fwd`` and ``inv`` times and nothing
-    else of the J2K path did: no lifting pass, no DCT."""
+    """The fused stages launched ``fwd`` and ``inv`` times and no other
+    kernel launched."""
     check(lc["j2k_fwd_stage"] == fwd and lc["j2k_inv_stage"] == inv
-          and lc["dwt53_fwd_pass"] == lc["dwt53_inv_pass"] == 0
-          and lc["fdct8x8_quant"] == 0,
+          and not any(v for k, v in lc.items()
+                      if k not in ("j2k_fwd_stage", "j2k_inv_stage")),
           f"{label}: launches {lc}, want {fwd} forward, {inv} inverse")
 
 
@@ -2062,12 +2103,8 @@ def main() -> int:
     rows = device_bench.run_bench(B, H, W, seed=SEED, card=card)
     torch.cuda.synchronize()
     launches = dict(_kernels.launch_counts)
-    long_launches = dict(_kernels.long_route_counts)
-    print(f"main path {time.perf_counter() - t0:.2f} s, launches {launches}, "
-          f"of them on the long-line route {long_launches}")
+    print(f"main path {time.perf_counter() - t0:.2f} s, launches {launches}")
     check(all(n > 0 for n in launches.values()), "a kernel never launched")
-    check(all(n > 0 for n in long_launches.values()),
-          "a lifting pass never took its long-line route")
     for r in rows:
         print("BENCH|" + json.dumps(r))
 
@@ -2077,7 +2114,6 @@ def main() -> int:
     # before the profiler-heavy phases, after which torch.profiler drops
     # more of the kernel events the device times are read from
     times = time_kernels(dev, np.random.default_rng(SEED), qt)
-    long_times = time_long_route()
     codec_phase(rng, dev, card)
     families = families_phase(rng, dev, card)
     launches.update(jpeg_phase(rng, dev, card))
@@ -2097,12 +2133,9 @@ def main() -> int:
                         "bound_ms": tk["bound_ms"],
                         "bound_by": tk["bound_by"], "library_ms": None})
         for extra in ("xplus1_ms", "xplus1_device_ms", "uint16_12bit",
-                      "per_frame", "rgb"):
+                      "per_frame", "rgb", "long"):
             if extra in tk:
                 kernels[-1][extra] = tk[extra]
-        if name in long_times:
-            kernels[-1]["long_route"] = {"launches": long_launches[name],
-                                         **long_times[name]}
         if name in ("j2k_fwd_stage", "j2k_inv_stage"):
             kernels[-1]["htj2k_201_launches"] = {
                 "encode": ht["encode"][name], "decode": ht["decode"][name],
@@ -2115,6 +2148,14 @@ def main() -> int:
             "benchmarks": {k[:-len(name) - 1]: v for k, v in
                            tools_launches["benchmarks"].items()
                            if k.endswith(name)}}
+    check(not set(RETIRED) & set(_kernels.launch_counts),
+          "a retired kernel is still counted")
+    print("retired: " + ", ".join(f"{k} (replaced {v})" for k, v in
+                                  RETIRED.items())
+          + ": csrc/dwt53.cu is gone; every line length runs in the fused "
+          "stages' tile pass (a 64² tile and its halo of 2 in shared memory "
+          "whatever the line length), so no frame leaves j2k_fwd_stage and "
+          "j2k_inv_stage")
     print(card)
     print(json.dumps({"kernels": kernels, "gpu": card}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,7 @@ allocate nothing: the callers pass outputs they allocated, and a wrapper
 that needs scratch takes it from torch.
 
 ``launch_counts`` holds one plain integer per kernel, raised by one at
-each launch, so that a run can show which kernels it went through;
-``long_route_counts`` counts the launches of the lifting passes that took
-their long-line route (a part of ``launch_counts``).
+each launch, so that a run can show which kernels it went through.
 
 A wrapper that refuses a launch raises ``KernelLaunchError``, never
 ``ValueError``: the codecs fall back to their scalar path on a
@@ -39,14 +37,9 @@ LIB_PATH = BUILD_DIR / "libgdct_torch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Shared memory one block may use on Hopper (227 KB).
-SMEM_MAX_BYTES = 232448
-
-launch_counts = {"fdct8x8_quant": 0, "dwt53_fwd_pass": 0,
-                 "dwt53_inv_pass": 0, "j2k_fwd_stage": 0,
+launch_counts = {"fdct8x8_quant": 0, "j2k_fwd_stage": 0,
                  "j2k_inv_stage": 0, "jpeg_fdct_islow": 0,
                  "jpeg_idct_islow": 0}
-long_route_counts = {"dwt53_fwd_pass": 0, "dwt53_inv_pass": 0}
 
 _lib = None
 
@@ -57,9 +50,8 @@ class KernelLaunchError(RuntimeError):
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, long_route_counts):
-        for k in counts:
-            counts[k] = 0
+    for k in launch_counts:
+        launch_counts[k] = 0
 
 
 def _find_nvcc() -> str:
@@ -122,10 +114,6 @@ def _load():
     lib = ctypes.CDLL(str(LIB_PATH))
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
-    lib.gdct_dwt53_fwd_pass.argtypes = [p, ll, ll, i, ll, i, ll, i, i, p]
-    lib.gdct_dwt53_inv_pass.argtypes = [p, ll, ll, i, ll, i, ll, i, i, p]
-    lib.gdct_dwt53_long_pass.argtypes = [p, p, ll, ll, i, ll, i, ll, ll, ll,
-                                         i, i, p]
     lib.gdct_fdct8x8_quant.argtypes = [p, p, p, p, ll, i, i, f, p]
     lib.gdct_j2k_fwd_stage.argtypes = [p, i, p, p, i, i, i, i, i, i, p, i, i,
                                        i, i, i, p, p, p, p, p]
@@ -133,10 +121,9 @@ def _load():
                                        i, i, i, i, p]
     lib.gdct_jpeg_fdct_islow.argtypes = [p, i, p, p, ll, i, i, i, p]
     lib.gdct_jpeg_idct_islow.argtypes = [p, p, i, p, ll, i, i, i, i, p]
-    for fn in (lib.gdct_dwt53_fwd_pass, lib.gdct_dwt53_inv_pass,
-               lib.gdct_dwt53_long_pass, lib.gdct_fdct8x8_quant,
-               lib.gdct_j2k_fwd_stage, lib.gdct_j2k_inv_stage,
-               lib.gdct_jpeg_fdct_islow, lib.gdct_jpeg_idct_islow):
+    for fn in (lib.gdct_fdct8x8_quant, lib.gdct_j2k_fwd_stage,
+               lib.gdct_j2k_inv_stage, lib.gdct_jpeg_fdct_islow,
+               lib.gdct_jpeg_idct_islow):
         fn.restype = ctypes.c_int
     lib.gdct_error_string.argtypes = [ctypes.c_int]
     lib.gdct_error_string.restype = ctypes.c_char_p
@@ -170,85 +157,6 @@ def _stream(x: torch.Tensor):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def dwt53_smem_bytes(lines_per_block: int, line_len: int) -> int:
-    """Shared memory of one lifting block: its lines at the odd pitch of
-    csrc/dwt53.cu (``line_pitch``)."""
-    return lines_per_block * (line_len | 1) * 4
-
-
-def dwt53_long_line(line_len: int) -> bool:
-    """True when one line of ``line_len`` samples does not fit in a
-    block's shared memory (over 58111 samples)."""
-    return dwt53_smem_bytes(1, line_len) > SMEM_MAX_BYTES
-
-
-def dwt53_route(line_len: int, lines_per_block: int) -> str:
-    """The route of a lifting pass, from its shape alone: "smem" (lines in
-    shared memory) or "long" (each sample from a snapshot of the window,
-    for lines that do not fit)."""
-    if dwt53_long_line(line_len):
-        return "long"
-    if dwt53_smem_bytes(lines_per_block, line_len) > SMEM_MAX_BYTES:
-        raise KernelLaunchError(f"dwt53_pass: {lines_per_block} lines of "
-                                f"{line_len} samples exceed "
-                                f"{SMEM_MAX_BYTES} bytes of shared memory")
-    return "smem"
-
-
-def _window_snapshot(x: torch.Tensor, n_lines: int, line_stride: int,
-                     n: int, elem_stride: int):
-    """A copy of the pass's window of every plane, [n_lines * n] words a
-    plane in the array's own order (rows stay rows): (snapshot, its line
-    stride, its sample stride). Always a copy: a window that is the whole
-    array is contiguous, and ``.contiguous()`` would hand back ``x``."""
-    rows = elem_stride == 1
-    shape = (n_lines, n) if rows else (n, n_lines)
-    strides = (line_stride, 1) if rows else (elem_stride, line_stride)
-    view = x.as_strided((x.shape[0], *shape), (x.stride(0), *strides))
-    snap = view.clone(memory_format=torch.contiguous_format)
-    return (snap, n, 1) if rows else (snap, 1, n_lines)
-
-
-def dwt53_pass(x: torch.Tensor, n_lines: int, line_stride: int,
-               line_len: int, elem_stride: int, lines_per_block: int,
-               even: bool, inverse: bool) -> None:
-    """One in-place 1D 5/3 lifting pass over ``n_lines`` lines of every
-    [H, W] plane of the contiguous int32 tensor ``x`` [B, H, W].
-
-    Line j's sample i sits at ``j * line_stride + i * elem_stride`` from
-    the plane's origin. ``lines_per_block`` lines share one block's
-    shared memory; the caller keeps ``dwt53_smem_bytes`` of them within
-    ``SMEM_MAX_BYTES``. A line too long for shared memory takes the
-    long-line route (``dwt53_route``): a torch copy of the window, then one
-    launch that computes every sample of the window from that copy.
-    """
-    route = dwt53_route(line_len, lines_per_block)
-    _require(x, torch.int32, "dwt53_pass")
-    nb = x.shape[0]
-    if nb == 0 or n_lines == 0 or line_len == 0:
-        return
-    lib = _load()
-    name = "dwt53_inv_pass" if inverse else "dwt53_fwd_pass"
-    args = (nb, x.shape[1] * x.shape[2], n_lines, line_stride, line_len,
-            elem_stride)
-    with torch.cuda.device(x.device):
-        if route == "long":
-            snap, snap_line, snap_elem = _window_snapshot(
-                x, n_lines, line_stride, line_len, elem_stride)
-            err = lib.gdct_dwt53_long_pass(x.data_ptr(), snap.data_ptr(),
-                                           *args, snap_line, snap_elem,
-                                           int(even), int(inverse),
-                                           _stream(x))
-            long_route_counts[name] += 1
-        else:
-            fn = (lib.gdct_dwt53_inv_pass if inverse
-                  else lib.gdct_dwt53_fwd_pass)
-            err = fn(x.data_ptr(), *args, lines_per_block, int(even),
-                     _stream(x))
-    launch_counts[name] += 1
-    _check(lib, err, name)
-
-
 # dtypes the forward stage reads as they are (others are cast to int32
 # first), with their code in csrc/j2k_fwd_stage.cu
 FWD_STAGE_DTYPES = {torch.uint16: 0, torch.int16: 1, torch.int32: 2,
@@ -256,6 +164,10 @@ FWD_STAGE_DTYPES = {torch.uint16: 0, torch.int16: 1, torch.int32: 2,
 FWD_STAGE_EPILOGUES = {"coeffs": 0, "narrow": 1, "stats": 2}
 STAGE_MAX_ROWS = 64   # kMaxRows of both stages: one row a level
 STAGE_MAX_TILE = 64   # kMaxTile of csrc/lifting.cuh
+# The longest side the stages index in int: the symmetric fold's period
+# 2(n - 1) (csrc/lifting.cuh::fold) must stay an int.
+STAGE_MAX_SIDE = 1 << 30
+INT32_MAX = (1 << 31) - 1
 
 
 def stage_smem_bytes(tile: int, rct: bool) -> int:
@@ -274,9 +186,27 @@ def _stage_table(name: str, schedule: tuple):
     if not 2 <= tile <= STAGE_MAX_TILE or tile % 2:
         raise KernelLaunchError(f"{name}: a tile of {tile} samples")
     flat = [int(v) for row in rows for v in row]
-    if any(not -(1 << 31) <= v < (1 << 31) for v in flat + [words]):
+    if any(not -(1 << 31) <= v <= INT32_MAX for v in flat + [words]):
         raise KernelLaunchError(f"{name}: a table entry exceeds int32")
     return (ctypes.c_int * max(1, len(flat)))(*flat)
+
+
+def _stage_plane(name: str, h: int, w: int, schedule, cb: int = 0):
+    """``_stage_table`` of a launch over [H, W] planes, refused where an
+    index of the kernel, an int, could pass 2^31 - 1: a side over
+    ``STAGE_MAX_SIDE``, a level of more tiles than that, or (``cb``) a
+    plane of more code-blocks. Offsets within a plane and across planes
+    are long long in the kernels."""
+    table = _stage_table(name, tuple(schedule))
+    tile = schedule[0]
+    if max(h, w) > STAGE_MAX_SIDE:
+        raise KernelLaunchError(f"{name}: a side of {max(h, w)} samples "
+                                f"exceeds {STAGE_MAX_SIDE}")
+    if (-(-h // tile) * -(-w // tile) > INT32_MAX
+            or (cb and -(-h // cb) * -(-w // cb) > INT32_MAX)):
+        raise KernelLaunchError(f"{name}: {h}×{w} planes have more tiles "
+                                f"or code-blocks than an int32 counts")
+    return table
 
 
 def _scratch(schedule, planes: int, like):
@@ -305,6 +235,11 @@ def j2k_fwd_stage(src: torch.Tensor, coef: torch.Tensor, schedule,
     ``cb_max`` and ``cb_bits`` (int32 [P, ceil(H/cb), ceil(W/cb)]). The
     levels pass their LL through an int32 scratch of P × the schedule's
     words.
+
+    The largest plane: every side DICOM allows, up to 65535 × 65535, whose
+    two LL areas take at most 1,342,177,280 scratch words a plane (within
+    the table's int32). A plane whose table, tiles or code-blocks an int32
+    cannot count is refused before the launch (``_stage_plane``).
     """
     if src.dtype not in FWD_STAGE_DTYPES:
         raise KernelLaunchError(f"j2k_fwd_stage: no route for {src.dtype}")
@@ -315,8 +250,11 @@ def j2k_fwd_stage(src: torch.Tensor, coef: torch.Tensor, schedule,
             or src.shape[0] % comps):
         raise KernelLaunchError(f"j2k_fwd_stage: bad shape "
                                 f"{tuple(src.shape)} of {comps} components")
-    table = _stage_table("j2k_fwd_stage", tuple(schedule))
+    if epilogue == "stats" and cb < 1:
+        raise KernelLaunchError(f"j2k_fwd_stage: code-block size {cb}")
     p, h, w = src.shape
+    table = _stage_plane("j2k_fwd_stage", h, w, schedule,
+                         cb if epilogue == "stats" else 0)
     want = {}
     if epilogue != "narrow" or coef is not None:
         want["coef"] = (coef, torch.int32, (p, h, w))
@@ -324,8 +262,6 @@ def j2k_fwd_stage(src: torch.Tensor, coef: torch.Tensor, schedule,
         want.update(narrow=(narrow, torch.int16, (p, h, w)),
                     maxabs=(maxabs, torch.int32, (1,)))
     elif epilogue == "stats":
-        if cb < 1:
-            raise KernelLaunchError(f"j2k_fwd_stage: code-block size {cb}")
         grid = (p, -(-h // cb), -(-w // cb))
         want.update(cb_max=(cb_max, torch.int32, grid),
                     cb_bits=(cb_bits, torch.int32, grid))
@@ -378,6 +314,12 @@ def j2k_inv_stage(src: torch.Tensor, out: torch.Tensor, schedule,
     components 0-2 when ``mct`` and ``comps`` >= 3, then + 2^(bits-1)
     unless ``signed``. The levels pass their reconstruction through an
     int32 scratch of P × the schedule's words.
+
+    The largest plane: every side DICOM allows, up to 65535 × 65535, whose
+    two finest reconstructions below the output take at most 1,342,177,280
+    scratch words a plane (within the table's int32). A plane whose table
+    or tiles an int32 cannot count is refused before the launch
+    (``_stage_plane``).
     """
     if src.dtype not in INV_STAGE_DTYPES:
         raise KernelLaunchError(f"j2k_inv_stage: no route for {src.dtype}")
@@ -386,6 +328,8 @@ def j2k_inv_stage(src: torch.Tensor, out: torch.Tensor, schedule,
             or src.shape[0] % comps):
         raise KernelLaunchError(f"j2k_inv_stage: bad shape "
                                 f"{tuple(src.shape)} of {comps} components")
+    p, h, w = src.shape
+    table = _stage_plane("j2k_inv_stage", h, w, schedule)
     if epilogue not in INV_STAGE_EPILOGUES:
         raise KernelLaunchError(f"j2k_inv_stage: no epilogue {epilogue!r}")
     lo = hi = 0
@@ -406,8 +350,6 @@ def j2k_inv_stage(src: torch.Tensor, out: torch.Tensor, schedule,
     if out.data_ptr() == src.data_ptr():
         raise KernelLaunchError("j2k_inv_stage: src is out; the stage "
                                 "never writes its input")
-    table = _stage_table("j2k_inv_stage", tuple(schedule))
-    p, h, w = src.shape
     scratch = _scratch(schedule, p, src)
     dc = 0 if signed else 1 << (bits - 1)
     lib = _load()

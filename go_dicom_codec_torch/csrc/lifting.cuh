@@ -1,13 +1,14 @@
-// Reversible 5/3 lifting (ISO/IEC 15444-1 Annex F): the pieces that the
-// per-pass kernels of dwt53.cu and the fused stages of j2k_fwd_stage.cu and
-// j2k_inv_stage.cu share.
+// Reversible 5/3 lifting (ISO/IEC 15444-1 Annex F): the 2D tile pass that
+// the fused stages of j2k_fwd_stage.cu and j2k_inv_stage.cu share, for
+// planes of every line length (a tile and its halo fit in shared memory
+// whatever the plane's size), and their launch helpers.
 //
-// Lines are lifted on their interleaved samples with whole-sample
-// symmetric extension, which is the edge clamp of the reference for both
-// parities (the mirror keeps parity, so the neighbours of a low sample are
-// high samples and the other way round). The packed [L | H] order is
-// produced (forward) or undone (inverse) by the index map of the global
-// store (forward) or load (inverse).
+// A tile is lifted on its interleaved samples with whole-sample symmetric
+// extension, which is the edge clamp of the reference for both parities
+// (the mirror keeps parity, so the neighbours of a low sample are high
+// samples and the other way round). The packed [L | H] order is produced
+// (forward) or undone (inverse) by the index map of the stage's store
+// (forward) or load (inverse).
 //
 // Arithmetic is int32 with two's-complement wraparound (done in unsigned,
 // since signed overflow is undefined in C++) and arithmetic >>, as jnp.
@@ -32,26 +33,10 @@ __device__ __forceinline__ int wsub(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
-// Whole-sample symmetric extension of an interleaved index (n >= 2).
-__device__ __forceinline__ int mirror(int q, int n) {
-  return q < 0 ? -q : (q >= n ? 2 * (n - 1) - q : q);
-}
-
-// Interleaved position of packed index i: lows first, then highs.
-__device__ __forceinline__ int packed_to_interleaved(int i, int sn, int lo0) {
-  return i < sn ? 2 * i + lo0 : 2 * (i - sn) + (1 - lo0);
-}
-
 // Packed index of interleaved position p.
 __device__ __forceinline__ int interleaved_to_packed(int p, int sn, int lo0) {
   return (p & 1) == lo0 ? (p - lo0) >> 1 : sn + ((p - (1 - lo0)) >> 1);
 }
-
-// Words between lines in shared memory: n made odd, so that the 32 lanes
-// of a warp that take 32 neighbouring columns of a column pass, at one
-// position each, hit 32 different banks (a stride of n = 512 would put
-// them all in one bank).
-__host__ __device__ __forceinline__ int line_pitch(int n) { return n | 1; }
 
 // The items k = threadIdx.x, threadIdx.x + blockDim.x, ... of a block's
 // loop over k = s * fast + f (f < fast), as (s, f), without a division a
@@ -74,104 +59,6 @@ struct Walk {
     }
   }
 };
-
-// Lift every line of buf ([nl][line_pitch(n)], n interleaved samples each)
-// over positions first, first + 2, ... (count per line): buf[p] += sign *
-// ((buf[l] + buf[r] + rnd) >> shift) with l, r the mirrored neighbours of p.
-__device__ __forceinline__ void lift(int* buf, int nl, int n, int first,
-                                     int count, int rnd, int shift,
-                                     bool add) {
-  for (Walk w(count); w.s < nl; w.next()) {
-    const int p = first + 2 * w.f;
-    int* line = buf + w.s * line_pitch(n);
-    const int t = wadd(wadd(line[mirror(p - 1, n)], line[mirror(p + 1, n)]),
-                       rnd) >> shift;
-    line[p] = add ? wadd(line[p], t) : wsub(line[p], t);
-  }
-}
-
-// The loads and stores of lift_lines: sample i of line j, at `at` = j *
-// line_stride + i * elem_stride from the block's first line.
-template <typename T>
-struct Widen {  // in[at] widened to int32, less `shift`
-  const T* in;
-  int shift;
-  __device__ __forceinline__ int operator()(int, int, long long at) const {
-    return wsub(static_cast<int>(in[at]), shift);
-  }
-};
-
-struct Put {  // out[at] = v
-  int* out;
-  __device__ __forceinline__ void operator()(long long at, int v) const {
-    out[at] = v;
-  }
-};
-
-// One block's share of a pass: nl lines of n samples, line j's sample i
-// read as load(j, i, at), lifted in shared memory and handed to
-// store(at, v). Load and store may address one buffer: every read of the
-// block comes before its first write. Ends with a barrier, so a block may
-// call it again for other lines.
-template <bool kInverse, typename Load, typename Store>
-__device__ __forceinline__ void lift_lines(const Load& load,
-                                           const Store& store, int* buf,
-                                           int nl, int n,
-                                           long long line_stride,
-                                           long long elem_stride, bool even) {
-  const bool rows = elem_stride == 1;
-  const int lo0 = even ? 0 : 1;
-  const int sn = (n + 1 - lo0) / 2;  // number of low-pass samples
-  const int dn = n - sn;
-  const int ld = line_pitch(n);
-
-  // Coalesced load: consecutive threads take consecutive addresses.
-  for (Walk w(rows ? n : nl); w.s < (rows ? nl : n); w.next()) {
-    const int j = rows ? w.s : w.f;
-    const int i = rows ? w.f : w.s;
-    const int p = kInverse ? packed_to_interleaved(i, sn, lo0) : i;
-    buf[j * ld + p] = load(j, i, j * line_stride + i * elem_stride);
-  }
-  __syncthreads();
-
-  if (n == 1) {
-    // A single sample at odd parity is a high-pass sample: ×2 forward,
-    // >>1 inverse (reference dwt53.go:70-73, :176). Even parity: identity.
-    if (!even) {
-      for (int k = threadIdx.x; k < nl; k += blockDim.x) {
-        buf[k] = kInverse ? (buf[k] >> 1) : wadd(buf[k], buf[k]);
-      }
-    }
-  } else if (!kInverse) {
-    lift(buf, nl, n, 1 - lo0, dn, 0, 1, false);  // predict highs
-    __syncthreads();
-    lift(buf, nl, n, lo0, sn, 2, 2, true);       // update lows
-  } else {
-    lift(buf, nl, n, lo0, sn, 2, 2, false);      // undo update
-    __syncthreads();
-    lift(buf, nl, n, 1 - lo0, dn, 0, 1, true);   // undo predict
-  }
-  __syncthreads();
-
-  for (Walk w(rows ? n : nl); w.s < (rows ? nl : n); w.next()) {
-    const int j = rows ? w.s : w.f;
-    const int i = rows ? w.f : w.s;
-    const int p = kInverse ? i : packed_to_interleaved(i, sn, lo0);
-    store(j * line_stride + i * elem_stride, buf[j * ld + p]);
-  }
-  __syncthreads();
-}
-
-// The same, reading in[at] widened to int32 less `shift` and writing
-// out[at].
-template <bool kInverse, typename TIn>
-__device__ __forceinline__ void lift_lines(const TIn* in, int* out, int shift,
-                                           int* buf, int nl, int n,
-                                           long long line_stride,
-                                           long long elem_stride, bool even) {
-  lift_lines<kInverse>(Widen<TIn>{in, shift}, Put{out}, buf, nl, n,
-                       line_stride, elem_stride, even);
-}
 
 // ---- The 2D tile pass of the fused stages --------------------------------
 //

@@ -5,12 +5,11 @@ Port of ``go_dicom_codec_tpu/ops/dwt53.py:37-344``, in two lanes:
 - the plain lane (``fwd53_1d`` … ``inv53_2d``, ``*_multilevel_plain_``):
   torch functions with the reference's lifting arithmetic, shifted slices
   with edge clamps, on any device;
-- the kernel lane: for a CUDA tensor the whole forward transform is one
-  launch of ``csrc/j2k_fwd_stage.cu`` and the whole inverse one launch of
-  ``csrc/j2k_inv_stage.cu`` (``fwd_schedule`` and ``inv_schedule`` are
-  their level tables: one 2D-tiled pass a level); lines too long for
-  shared memory run one 2D level as two launches of the lifting passes of
-  ``csrc/dwt53.cu``, one along columns and one along rows.
+- the kernel lane: for a CUDA tensor of any shape the whole forward
+  transform is one launch of ``csrc/j2k_fwd_stage.cu`` and the whole
+  inverse one launch of ``csrc/j2k_inv_stage.cu`` (``fwd_schedule`` and
+  ``inv_schedule`` are their level tables: one 2D-tiled pass a level,
+  whose tile and halo fit in shared memory whatever the line length).
 
 ``fwd53_multilevel_``/``inv53_multilevel_`` pick the kernel lane for a
 CUDA tensor and the plain lane for a CPU tensor; any other device raises.
@@ -209,45 +208,6 @@ def _inv_level_plain_(x, h, w, even_row, even_col):
     x[..., :h, :w] = inv53_2d(x[..., :h, :w], even_row, even_col)
 
 
-# ---- kernel lane ------------------------------------------------------------
-
-_ROW_SAMPLES_PER_BLOCK = 2048   # rows share a block up to this many samples
-_COLS_PER_BLOCK = 32            # 32 int32 columns = one 128-byte segment
-
-
-def _level_passes(h: int, w: int, even_row: bool,
-                  even_col: bool) -> List[Tuple[bool, bool]]:
-    """The 1D passes of one forward level, in order, as (vertical, even).
-
-    A size-1 dimension still passes at odd parity (its single sample is a
-    HIGH coefficient); at even parity it is skipped. The inverse runs
-    them in reverse.
-    """
-    passes = []
-    if h > 1 or not even_col:
-        passes.append((True, even_col))
-    if w > 1 or not even_row:
-        passes.append((False, even_row))
-    return passes
-
-
-def _pass_geometry(width: int, h: int, w: int, vertical: bool,
-                   cols_per_block: int = _COLS_PER_BLOCK
-                   ) -> Tuple[int, int, int, int, int]:
-    """(n_lines, line_stride, n, elem_stride, lines_per_block) of one pass
-    over the top-left h×w window of planes ``width`` samples wide."""
-    if vertical:
-        n_lines, line_stride, n, elem_stride = w, 1, h, width
-        lpb = cols_per_block
-    else:
-        n_lines, line_stride, n, elem_stride = h, width, w, 1
-        lpb = _ROW_SAMPLES_PER_BLOCK // n
-    # a line too long for shared memory leaves lpb = 1; the launch wrapper
-    # then takes the long-line route
-    fit = _kernels.SMEM_MAX_BYTES // _kernels.dwt53_smem_bytes(1, n)
-    return n_lines, line_stride, n, elem_stride, max(1, min(lpb, n_lines, fit))
-
-
 # ---- the fused stages' level tables ------------------------------------------
 
 # The side of the stages' output tiles (csrc/lifting.cuh, the tile pass): a
@@ -259,20 +219,23 @@ _TILE = 64
 # first grid barrier. Chosen on the H100 from none, 64² and 128² (the
 # HEAD| lines of tools/device_bench.py, PERF.md).
 _HEAD_SAMPLES = 64 * 64
+# The head also bounds each side of a window by this many samples, the
+# card's tile side, so that a long, thin coarse window (4096×1 at 5 levels
+# of a 16-row frame: 64 tiles) spreads its tiles over the grid rather than
+# leaving one block a plane to walk them in turn: 2.3× faster at 5 levels
+# of [2, 16, 65535], 3.2× at [2, 65535, 16], the same tables at 512² (the
+# HEAD| lines of tools/device_bench.py on the H100, PERF.md).
+_HEAD_SIDE = 64
 
 ROW_KINDS = {"grid": 0, "block": 1}
 
 
 def _stage_windows(width: int, height: int, levels: int, x0: int, y0: int):
     """The level windows of a stage, finest first, less those that change
-    nothing (1×1 at even parity both ways), or None when a line is too
-    long for shared memory (over 58111 samples): the transform then runs
-    pass by pass, on the long-line route of csrc/dwt53.cu."""
-    wins = _level_windows(width, height, levels, x0, y0)
-    if wins and (_kernels.dwt53_long_line(width)
-                 or _kernels.dwt53_long_line(height)):
-        return None
-    return [(w, h, lx0, ly0) for (w, h, lx0, ly0) in wins
+    nothing (1×1 at even parity both ways)."""
+    return [(w, h, lx0, ly0)
+            for (w, h, lx0, ly0) in _level_windows(width, height, levels,
+                                                   x0, y0)
             if not (w == 1 and h == 1 and lx0 % 2 == 0 and ly0 % 2 == 0)]
 
 
@@ -293,8 +256,11 @@ def _scratch(sizes: List[int]) -> Tuple[List[int], int]:
 def fwd_schedule(width: int, height: int, levels: int, x0: int = 0,
                  y0: int = 0):
     """The forward transform of [H, W] planes as csrc/j2k_fwd_stage.cu
-    runs it: (tile, scratch words a plane, rows), or None when a line is
-    too long for shared memory (the transform then runs pass by pass).
+    runs it: (tile, scratch words a plane, rows), for every side and
+    origin (a tile and its halo fit in shared memory whatever the line
+    length). At 65535² and three levels or more the scratch is the most
+    it gets, 32768² + 16384² = 1,342,177,280 words: within the int32 of the
+    kernel's table (``_kernels._stage_plane`` checks every launch).
 
     One row a level, finest first: (kind, w, h, even_x, even_y, in_off,
     out_off). kind "grid" spreads the level's tiles over the grid, "block"
@@ -304,8 +270,6 @@ def fwd_schedule(width: int, height: int, levels: int, x0: int = 0,
     goes there, -1 for the output (the last level).
     """
     wins = _stage_windows(width, height, levels, x0, y0)
-    if wins is None:
-        return None
     outs, words = _scratch([_ll_size(*win) for win in wins[:-1]])
     rows = []
     for i, (w, h, lx0, ly0) in enumerate(wins):
@@ -317,19 +281,21 @@ def fwd_schedule(width: int, height: int, levels: int, x0: int = 0,
 
 
 def _inv_schedule(width: int, height: int, levels: int, x0: int, y0: int,
-                  head_samples: int):
-    """``inv_schedule`` with a head of at most ``head_samples`` samples."""
-    wins = _stage_windows(width, height, levels, x0, y0)
-    if wins is None:
-        return None
-    wins = wins[::-1]                                  # coarsest first
-    # a level's reconstruction is the next one's LL: the last-but-one is
-    # the largest, so the areas are handed out from the finest level up
+                  head_samples: int, head_side=None):
+    """``inv_schedule`` with a head of windows of at most ``head_samples``
+    samples and, unless ``head_side`` is None, sides of at most
+    ``head_side`` samples."""
+    wins = _stage_windows(width, height, levels, x0, y0)[::-1]
+    # coarsest first; a level's reconstruction is the next one's LL: the
+    # last-but-one is the largest, so the areas are handed out from the
+    # finest level up
     outs, words = _scratch([w * h for (w, h, _, _) in wins[-2::-1]])
     outs = outs[::-1]
     rows = []
     for i, (w, h, lx0, ly0) in enumerate(wins):
-        kind = "block" if w * h <= head_samples else "grid"
+        head = w * h <= head_samples and (head_side is None
+                                          or max(w, h) <= head_side)
+        kind = "block" if head else "grid"
         rows.append((ROW_KINDS[kind], w, h, int(lx0 % 2 == 0),
                      int(ly0 % 2 == 0), outs[i - 1] if i else -1,
                      outs[i] if i < len(wins) - 1 else -1))
@@ -340,45 +306,25 @@ def _inv_schedule(width: int, height: int, levels: int, x0: int, y0: int,
 def inv_schedule(width: int, height: int, levels: int, x0: int = 0,
                  y0: int = 0):
     """The inverse transform of [H, W] planes as csrc/j2k_inv_stage.cu
-    runs it: (tile, scratch words a plane, rows), or None when a line is
-    too long for shared memory (the transform then runs pass by pass).
+    runs it: (tile, scratch words a plane, rows), for every side and
+    origin, as ``fwd_schedule`` (the same scratch at most).
 
     One row a level, coarsest first, as in ``fwd_schedule``: (kind, w, h,
     even_x, even_y, in_off, out_off). The head is the coarsest levels
-    whose window holds at most ``_HEAD_SAMPLES`` samples ("block" rows);
+    whose window holds at most ``_HEAD_SAMPLES`` samples, with sides of at
+    most ``_HEAD_SIDE`` ("block" rows);
     in_off is -1 where the level's LL lies in the input (the coarsest
     level), else where the level above wrote it in a plane's scratch;
     out_off is where the level's w×h reconstruction goes there, -1 for
     the output (the finest level).
     """
-    return _inv_schedule(width, height, levels, x0, y0, _HEAD_SAMPLES)
-
-
-def _pass_kernel_(x3: torch.Tensor, h: int, w: int, vertical: bool,
-                  even: bool, inverse: bool) -> None:
-    """One 1D lifting pass over the top-left h×w window of every plane of
-    the contiguous int32 [B, H, W] tensor ``x3``, in place."""
-    n_lines, line_stride, n, elem_stride, lpb = _pass_geometry(
-        x3.shape[-1], h, w, vertical)
-    _kernels.dwt53_pass(x3, n_lines, line_stride, n, elem_stride, lpb,
-                        even, inverse)
+    return _inv_schedule(width, height, levels, x0, y0, _HEAD_SAMPLES,
+                         _HEAD_SIDE)
 
 
 def _planes(x: torch.Tensor) -> torch.Tensor:
     """[..., H, W] → [B, H, W] view; the launch wrapper checks the rest."""
     return x.view(-1, x.shape[-2], x.shape[-1])
-
-
-def _fwd_level_kernel_(x, h, w, even_row, even_col):
-    x3 = _planes(x)
-    for vertical, even in _level_passes(h, w, even_row, even_col):
-        _pass_kernel_(x3, h, w, vertical, even, inverse=False)
-
-
-def _inv_level_kernel_(x, h, w, even_row, even_col):
-    x3 = _planes(x)
-    for vertical, even in reversed(_level_passes(h, w, even_row, even_col)):
-        _pass_kernel_(x3, h, w, vertical, even, inverse=True)
 
 
 # ---- multilevel -------------------------------------------------------------
@@ -406,12 +352,8 @@ def _multilevel_(x: torch.Tensor, levels: int, x0: int, y0: int,
 
 def _fwd_multilevel_kernel_(x: torch.Tensor, levels: int, x0: int,
                             y0: int) -> torch.Tensor:
-    """One launch of the fused forward stage, or pass by pass where a line
-    is too long for shared memory."""
+    """One launch of the fused forward stage."""
     sched = fwd_schedule(x.shape[-1], x.shape[-2], levels, x0, y0)
-    if sched is None:
-        return _multilevel_(x, levels, x0, y0, _fwd_level_kernel_,
-                            inverse=False)
     if x.numel():
         x3 = _planes(x)
         # the stage never writes its input: it reads a copy
@@ -421,12 +363,8 @@ def _fwd_multilevel_kernel_(x: torch.Tensor, levels: int, x0: int,
 
 def _inv_multilevel_kernel_(x: torch.Tensor, levels: int, x0: int,
                             y0: int) -> torch.Tensor:
-    """One launch of the inverse stage, or pass by pass where a line is too
-    long for shared memory."""
+    """One launch of the inverse stage."""
     sched = inv_schedule(x.shape[-1], x.shape[-2], levels, x0, y0)
-    if sched is None:
-        return _multilevel_(x, levels, x0, y0, _inv_level_kernel_,
-                            inverse=True)
     if x.numel():
         x3 = _planes(x)
         # the stage never writes its input: it reads a copy
@@ -439,9 +377,8 @@ def fwd53_multilevel_(x: torch.Tensor, levels: int, x0: int = 0,
     """Multilevel packed decomposition of [..., H, W] int32, in place.
 
     Finest level first; each level transforms the current LL window at the
-    top-left. A CUDA tensor takes one launch of csrc/j2k_fwd_stage.cu
-    (lines over 58111 samples: two launches of csrc/dwt53.cu per level); a
-    CPU tensor takes the plain lane.
+    top-left. A CUDA tensor of any shape takes one launch of
+    csrc/j2k_fwd_stage.cu, or raises; a CPU tensor takes the plain lane.
     """
     return _lane(x, _fwd_multilevel_kernel_,
                  fwd53_multilevel_plain_)(x, levels, x0, y0)
@@ -450,9 +387,8 @@ def fwd53_multilevel_(x: torch.Tensor, levels: int, x0: int = 0,
 def inv53_multilevel_(x: torch.Tensor, levels: int, x0: int = 0,
                       y0: int = 0) -> torch.Tensor:
     """Multilevel packed reconstruction of [..., H, W] int32, in place,
-    coarsest level first. A CUDA tensor takes one launch of
-    csrc/j2k_inv_stage.cu (lines over 58111 samples: two launches of
-    csrc/dwt53.cu per level); a CPU tensor takes the plain lane."""
+    coarsest level first. A CUDA tensor of any shape takes one launch of
+    csrc/j2k_inv_stage.cu, or raises; a CPU tensor takes the plain lane."""
     return _lane(x, _inv_multilevel_kernel_,
                  inv53_multilevel_plain_)(x, levels, x0, y0)
 

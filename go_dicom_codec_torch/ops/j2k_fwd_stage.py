@@ -9,10 +9,8 @@ program on the TPU. With ``mct`` the input is [B, C, H, W] and components
 0-2 of each frame pass through the RCT after the shift (components 3 and
 up do not).
 ``fwd_stage`` launches ``csrc/j2k_fwd_stage.cu`` once for a CUDA tensor
-whose lines fit in shared memory; longer lines (over 58111 samples) take
-the lifting passes of ``csrc/dwt53.cu`` with their long-line route, between
-a plain shift (and RCT) and a plain epilogue. A CPU tensor runs the plain version,
-``fwd_stage_plain``.
+of any line length (the largest plane: ``_kernels.j2k_fwd_stage``), or
+raises; a CPU tensor runs the plain version, ``fwd_stage_plain``.
 
 The epilogue returns:
 
@@ -29,8 +27,7 @@ import torch
 
 from .. import _kernels
 from .blockstats import codeblock_max_abs, max_bitplane
-from .dwt53 import (_fwd_multilevel_kernel_, fwd53_multilevel_plain_,
-                    fwd_schedule)
+from .dwt53 import fwd53_multilevel_plain_, fwd_schedule
 from .mct import rct_forward
 
 EPILOGUES = ("coeffs", "narrow", "stats")
@@ -91,9 +88,6 @@ def _fwd_stage_kernel(x: torch.Tensor, shift: int, levels: int, x0: int = 0,
                       mct: bool = False):
     h, w = x.shape[-2], x.shape[-1]
     sched = fwd_schedule(w, h, levels, x0, y0)
-    if sched is None:  # a line too long for shared memory
-        c = _fwd_multilevel_kernel_(_shifted(x, shift, mct), levels, x0, y0)
-        return _epilogue(c, epilogue, cb)
     if x.dtype not in _kernels.FWD_STAGE_DTYPES:
         x = x.to(torch.int32)
     src = x.contiguous().view(-1, h, w)

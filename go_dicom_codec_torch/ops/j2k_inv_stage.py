@@ -6,10 +6,8 @@ Counterpart of ``go_dicom_codec_tpu/pipeline.py:433-457``
 (``_j2k_decode_device_stage``) and ``ops/dwt53.py:315``
 (``inv53_multilevel``), which XLA fuses into one program on the TPU.
 ``inv_stage`` launches ``csrc/j2k_inv_stage.cu`` once for a CUDA tensor
-whose lines fit in shared memory; longer lines (over 58111 samples) take
-the lifting passes of ``csrc/dwt53.cu`` with their long-line route,
-between a plain widening copy and a plain epilogue. A CPU tensor runs the
-plain version, ``inv_stage_plain``.
+of any line length (the largest plane: ``_kernels.j2k_inv_stage``), or
+raises; a CPU tensor runs the plain version, ``inv_stage_plain``.
 
 The input is [B, C, H, W] (or [..., H, W] without the RCT), int16 or
 int32 (other types are cast to int32 first). The epilogue returns:
@@ -29,8 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .dwt53 import (_inv_level_kernel_, _multilevel_,
-                    inv53_multilevel_plain_, inv_schedule)
+from .dwt53 import inv53_multilevel_plain_, inv_schedule
 from .mct import inv_dc_level_shift, rct_inverse
 
 EPILOGUES = ("coeffs", "pixels", "narrow")
@@ -88,22 +85,12 @@ def inv_stage(x: torch.Tensor, levels: int, x0: int = 0, y0: int = 0,
     return _inv_stage_kernel(x, levels, x0, y0, bits, signed, mct, epilogue)
 
 
-def inv53_passes_(x: torch.Tensor, levels: int, x0: int = 0,
-                  y0: int = 0) -> torch.Tensor:
-    """The inverse 5/3 on the per-pass lane: two launches of the lifting
-    passes of csrc/dwt53.cu per level, in place."""
-    return _multilevel_(x, levels, x0, y0, _inv_level_kernel_, inverse=True)
-
-
 def _inv_stage_kernel(x: torch.Tensor, levels: int, x0: int = 0, y0: int = 0,
                       bits: int = 16, signed: bool = False,
                       mct: bool = False,
                       epilogue: str = "pixels") -> torch.Tensor:
     h, w = x.shape[-2], x.shape[-1]
     sched = inv_schedule(w, h, levels, x0, y0)
-    if sched is None:  # a line too long for shared memory
-        rec = inv53_passes_(_widened(x), levels, x0, y0)
-        return _epilogue(rec, bits, signed, mct, epilogue)
     if x.dtype not in _kernels.INV_STAGE_DTYPES:
         x = x.to(torch.int32)
     src = x.contiguous().view(-1, h, w)

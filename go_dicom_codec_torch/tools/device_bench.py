@@ -37,54 +37,51 @@ The four 9/7 and color rows are the reference's arithmetic
 hand-written kernel computes them. Each other row runs in the kernel lane
 (the hand-written kernels: one launch of the fused forward stage for every
 forward 5/3, of the fused inverse stage for every inverse) and the plain
-lane (the same step in plain torch),
-except the ceiling, which is plain torch only; the three stage rows also
-run the per-pass lane (torch widen, shift and RCT, two lifting-pass
-launches a level, torch epilogue: what lines too long for shared memory
-take); the
-two islow rows run one launch of their kernel of csrc/jpeg_islow.cu in the
-kernel lane. Inputs are device-resident 12-bit samples from
-``numpy.random.default_rng(seed)``. A run is ``iters`` calls back to back
-between two CUDA events; a row reports the median over ``RUNS`` runs
-after one warm-up run, as ms per call and Mpx/s, and beside it the host
-time it took to issue one call in the same runs (``host_ms``).
+lane (the same step in plain torch), except the ceiling, which is plain
+torch only; the two islow rows run one launch of their kernel of
+csrc/jpeg_islow.cu in the kernel lane. Inputs are device-resident 12-bit
+samples from ``numpy.random.default_rng(seed)``. A run is ``iters`` calls
+back to back between two CUDA events; a row reports the median over
+``RUNS`` runs after one warm-up run, as ms per call and Mpx/s, and beside
+it the host time it took to issue one call in the same runs
+(``host_ms``).
 
 The command line then shows, in the same process, where the time goes
 (``run_profile``): for every row and lane, and for the 5-level forward
-and inverse alone (fused, ten passes, plain), the device time per call
-(the kernel time torch.profiler records over ``iters`` calls), the device
-operations per call, its largest kernels and the device's idle share,
-1 − device time / event time; the narrow decode stage (int16
-coefficients → uint16 pixels: the fused inverse stage, the per-pass lane
-and plain torch) of gray 12-bit and RGB 8-bit frames; the stage and
-decode rows again at batches of ``DECODE_SMALL_BATCH`` (the decode
-pipeline's chunk) and ``STAGE_SMALL_BATCH`` (the encode pipeline's); the
-two islow rows with their bound (``jpeg_profile``); then the inverse stage's
-head budgets (``head_profile``: none, 64² and 128²
-samples at both batches, ``HEAD|``); then the same for each single lifting
-pass of the
-5-level transform (``iters`` launches of the one pass back to back); then
-the lifting passes' long-line route (``long_profile``): the level-1 pass
-along the 65535-sample side of [2, 16, 65535] and [2, 65535, 16] frames,
-forward and inverse, and the 5-level transform of [2, 16, 65535], with
-the kernel launches and long-route launches of one call. Each stage and
-long-route line carries its bound: the bytes it must move (input read
-once, outputs written once; a pass: its window read and written once)
-over the H100's 3.35 TB/s.
+and inverse alone (fused, plain), the device time per call (the kernel
+time torch.profiler records over ``iters`` calls), the device operations
+per call, its largest kernels and the device's idle share, 1 − device
+time / event time; the narrow decode stage (int16 coefficients → uint16
+pixels: the fused inverse stage and plain torch) of gray 12-bit and RGB
+8-bit frames; the stage and decode rows again at batches of
+``DECODE_SMALL_BATCH`` (the decode pipeline's chunk) and
+``STAGE_SMALL_BATCH`` (the encode pipeline's); the two islow rows with
+their bound (``jpeg_profile``); then the inverse stage's head budgets
+(``head_profile``: none, 64² and 128² samples at both batches, and at
+each ``LONG_SHAPES`` frame the head with and without a bound on its
+sides, ``HEAD|``); then the fused stages at ``LONG_SHAPES``, frames with
+a 65535-sample side (``long_profile``): the 5-level forward and inverse
+in place, the forward stage with the "coeffs" and "narrow" epilogues and
+the narrow decode stage, with the kernel launches of one call. Each stage
+and long line carries its bound: the bytes it must move (input read once,
+outputs written once) over the H100's 3.35 TB/s.
 
 Usage:
     python -m go_dicom_codec_torch.tools.device_bench [--batch N]
-        [--size WxH] [--iters N] [--levels] [--trace N]
+        [--size WxH] [--iters N] [--levels] [--trace N] [--long]
 
 Prints the card, one ``BENCH|`` JSON line per row and lane, one
-``PROFILE|`` line per step, one ``HEAD|`` line per head budget and batch,
-one ``PASS|`` line per pass and one ``LONG|`` line per long-route step and
-lane. ``--levels`` and ``--trace`` print, instead, what each level of the
+``PROFILE|`` line per step, one ``HEAD|`` line per head budget and batch
+(or long shape and head rule) and one ``LONG|`` line per long-line step
+and lane. ``--levels`` and ``--trace`` print, instead, what each level of the
 fused stages adds (``level_profile``, ``LEVELS|`` lines: the narrow
 forward and decode stages of ``--batch`` gray frames at 0-5 levels), and
 ``N`` pairs of ``utils.profiling.torch_trace`` windows with the kernel
 events each holds beside the launches (``trace_counts``, ``TRACE|``
-lines). Needs a CUDA device.
+lines). ``--long`` prints the ``LONG|`` lines alone; they call only
+the 5/3 and stage functions every checkout of the port has, so this
+file, put in another checkout, times that checkout's code. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -101,18 +98,14 @@ import torch
 from ..ops.blockstats import codeblock_max_abs, max_bitplane
 from ..ops.dct8x8 import LUMA_QUANT, scale_quant_table
 from .. import _kernels
-from ..ops.dwt53 import (_along_cols, _fwd_level_kernel_, _level_passes,
-                         _level_windows, _multilevel_, _pass_kernel_,
-                         fwd53_1d, fwd53_multilevel_,
-                         fwd53_multilevel_plain_, inv53_1d,
+from ..ops.dwt53 import (fwd53_multilevel_, fwd53_multilevel_plain_,
                          inv53_multilevel_, inv53_multilevel_plain_)
 from ..ops.dct8x8 import decode_zigzag_to_plane, encode_plane_to_zigzag
 from ..ops.fdct8x8_quant import fdct8x8_quant, fdct8x8_quant_plain
 from ..ops.jpeg_islow import fdct_islow, idct_islow
 from ..ops import dwt53
 from ..ops import j2k_inv_stage as istage
-from ..ops.j2k_fwd_stage import (_epilogue, _shifted, fwd_stage,
-                                 fwd_stage_plain)
+from ..ops.j2k_fwd_stage import fwd_stage, fwd_stage_plain
 from ..codecs.j2k_quant import step_sizes_97
 from ..ops.dwt97 import fwd97_multilevel, inv97_multilevel
 from ..ops.mct import dc_level_shift, ict_forward, rct_forward
@@ -127,7 +120,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 LANES = {"kernel": (fwd53_multilevel_, inv53_multilevel_, fdct8x8_quant),
          "plain": (fwd53_multilevel_plain_, inv53_multilevel_plain_,
                    fdct8x8_quant_plain)}
-# frames with a side too long for shared memory: along rows, along columns
+# frames with DICOM's longest side: along rows, along columns
 LONG_SHAPES = ((2, 16, 65535), (2, 65535, 16))
 JPEG_LEVEL = 2048  # the islow rows' 12-bit profile, as the reference's
 # the 9/7 rows' one deadzone step: the first band's at quality 85, in
@@ -142,21 +135,6 @@ def card_info() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
-
-
-def fwd53_passes_(x: torch.Tensor, levels: int, x0: int = 0,
-                  y0: int = 0) -> torch.Tensor:
-    """The forward 5/3 on the per-pass lane: two launches of the lifting
-    passes of csrc/dwt53.cu per level, in place."""
-    return _multilevel_(x, levels, x0, y0, _fwd_level_kernel_, inverse=False)
-
-
-def stage_passes(x: torch.Tensor, shift: int, levels: int, epilogue: str,
-                 cb: int = 64, mct: bool = False):
-    """The forward stage on the per-pass lane: torch widen, shift and RCT,
-    the lifting passes, the torch epilogue."""
-    return _epilogue(fwd53_passes_(_shifted(x, shift, mct), levels),
-                     epilogue, cb)
 
 
 def dwt53_stats(x: torch.Tensor, lane: str = "kernel"):
@@ -268,8 +246,6 @@ def _stage_steps(x: torch.Tensor) -> dict:
     def lanes(a, epilogue, shift=2048, mct=False):
         return {"kernel": lambda: fwd_stage(a, shift, LEVELS,
                                             epilogue=epilogue, mct=mct),
-                "passes": lambda: stage_passes(a, shift, LEVELS, epilogue,
-                                               mct=mct),
                 "plain": lambda: fwd_stage_plain(a, shift, LEVELS,
                                                  epilogue=epilogue, mct=mct)}
     cb = 64
@@ -306,9 +282,6 @@ def _decode_steps(x: torch.Tensor) -> dict:
         def lanes(pk=pk, bits=bits, mct=mct):
             args = (LEVELS, 0, 0, bits, False, mct, "narrow")
             return {"kernel": lambda: istage.inv_stage(pk, *args),
-                    "passes": lambda: istage._epilogue(
-                        istage.inv53_passes_(istage._widened(pk), LEVELS),
-                        bits, False, mct, "narrow"),
                     "plain": lambda: istage.inv_stage_plain(pk, *args)}
         rows[f"j2k_decode_narrow_{name}"] = (
             lanes(), pk.numel() * 4 / HBM_BYTES_PER_S * 1e3)
@@ -429,47 +402,66 @@ def jpeg_profile(batch: int, height: int = 512, width: int = 512,
             for lane, fn in lanes.items()]
 
 
+def _long_frames(shape, seed: int) -> tuple:
+    """A ``LONG_SHAPES`` frame's 12-bit samples as uint16 and its narrow
+    coefficients (int16, [B, 1, H, W]) on CUDA device 0."""
+    dev = torch.device("cuda", 0)
+    x16 = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, 1 << 12, shape).astype(np.uint16), device=dev)
+    return x16, fwd_stage(x16, 2048, LEVELS, epilogue="narrow")[0][:, None]
+
+
 def head_profile(batches=(DECODE_SMALL_BATCH, 32), height: int = 512,
                  width: int = 512, iters: int = 10, seed: int = 0,
                  card: str = "") -> list:
-    """The inverse stage's head budgets: the narrow decode stage of gray
-    frames launched with the schedule of each of ``HEAD_BUDGETS``, checked
-    against the plain version; one line per budget and batch with its
-    head's extent, grid passes and shared memory a block."""
+    """The inverse stage's head: the narrow decode stage of gray frames
+    launched with the schedule of each of ``HEAD_BUDGETS`` at each batch,
+    then of each ``LONG_SHAPES`` frame with the head of 64² samples and
+    sides unbounded or bounded (``_HEAD_SIDE``); each checked against the
+    plain version. One line per schedule with its head's extent, grid
+    levels and shared memory a block."""
     card = card or card_info()
-    lines = []
+    cases = []
     for batch in batches:
         x, _ = _inputs(batch, height, width, seed)
         pk = fwd_stage(x.to(torch.uint16), 2048, LEVELS,
                        epilogue="narrow")[0]
-        want = istage.inv_stage_plain(pk, LEVELS, bits=12,
-                                      epilogue="narrow")
-        for budget in HEAD_BUDGETS:
-            sched = dwt53._inv_schedule(width, height, LEVELS, 0, 0, budget)
-            out = torch.empty(pk.shape, dtype=torch.uint16, device=pk.device)
+        cases += [(pk, {"batch": batch, "head_samples": budget},
+                   dwt53._inv_schedule(width, height, LEVELS, 0, 0, budget))
+                  for budget in HEAD_BUDGETS]
+    for shape in LONG_SHAPES:
+        pk = _long_frames(shape, seed)[1][:, 0]
+        cases += [(pk, {"shape": list(shape), "head_samples": 64 * 64,
+                        "head_side": side},
+                   dwt53._inv_schedule(shape[2], shape[1], LEVELS, 0, 0,
+                                       64 * 64, side))
+                  for side in (None, dwt53._HEAD_SIDE)]
+    lines = []
+    for pk, key, sched in cases:
+        want = istage.inv_stage_plain(pk, LEVELS, bits=12, epilogue="narrow")
+        out = torch.empty(pk.shape, dtype=torch.uint16, device=pk.device)
 
-            def step(sched=sched, out=out):
-                _kernels.j2k_inv_stage(pk, out, sched, 1, "narrow", False,
-                                       12, False)
-            step()
-            if not torch.equal(out, want):
-                raise RuntimeError(f"head budget {budget}: the stage differs "
-                                   f"from its plain version")
-            head = [r[1:3] for r in sched[2]
-                    if r[0] == dwt53.ROW_KINDS["block"]]
-            extent = max(head, default=(0, 0))
-            lines.append(_line(
-                step, iters, card, step="inv_stage_head", batch=batch,
-                head_samples=budget, head=f"{extent[0]}x{extent[1]}",
-                grid_levels=len(sched[2]) - len(head),
-                smem_bytes=_kernels.stage_smem_bytes(sched[0], False),
-                bound_ms=pk.numel() * 4 / HBM_BYTES_PER_S * 1e3))
+        def step(sched=sched, out=out, pk=pk):
+            _kernels.j2k_inv_stage(pk, out, sched, 1, "narrow", False, 12,
+                                   False)
+        step()
+        if not torch.equal(out, want):
+            raise RuntimeError(f"head {key}: the stage differs from its "
+                               f"plain version")
+        head = [r[1:3] for r in sched[2] if r[0] == dwt53.ROW_KINDS["block"]]
+        extent = max(head, default=(0, 0))
+        lines.append(_line(
+            step, iters, card, step="inv_stage_head", **key,
+            head=f"{extent[0]}x{extent[1]}",
+            grid_levels=len(sched[2]) - len(head),
+            smem_bytes=_kernels.stage_smem_bytes(sched[0], False),
+            bound_ms=pk.numel() * 4 / HBM_BYTES_PER_S * 1e3))
     return lines
 
 
 def run_profile(batch: int = 32, height: int = 512, width: int = 512,
-                iters: int = 10, seed: int = 0, card: str = "") -> tuple:
-    """Where the time goes, on CUDA device 0: (step lines, pass lines).
+                iters: int = 10, seed: int = 0, card: str = "") -> list:
+    """Where the time goes, on CUDA device 0: the step lines.
 
     Every time of a line comes from this one call.
     """
@@ -481,9 +473,6 @@ def run_profile(batch: int = 32, height: int = 512, width: int = 512,
     for lane, (fwd, inv, _) in LANES.items():
         fns[f"fwd53_{LEVELS}lv/{lane}"] = lambda fwd=fwd: fwd(buf, LEVELS)
         fns[f"inv53_{LEVELS}lv/{lane}"] = lambda inv=inv: inv(buf, LEVELS)
-    fns[f"fwd53_{LEVELS}lv/passes"] = lambda: fwd53_passes_(buf, LEVELS)
-    fns[f"inv53_{LEVELS}lv/passes"] = lambda: istage.inv53_passes_(buf,
-                                                                   LEVELS)
     fns["xplus1/plain"] = lambda: x + 1
 
     steps = [_line(fn, iters, card, step=name, batch=batch)
@@ -491,96 +480,73 @@ def run_profile(batch: int = 32, height: int = 512, width: int = 512,
     steps += stage_profile(batch, height, width, iters, seed, card)
     steps += decode_profile(batch, height, width, iters, seed, card)
     steps += jpeg_profile(batch, height, width, iters, seed, card)
-    passes = []
-    for level, (w, h, _, _) in enumerate(
-            _level_windows(width, height, LEVELS, 0, 0), 1):
-        for inverse in (False, True):
-            for vertical in (True, False):
-                p = _line(lambda: _pass_kernel_(buf, h, w, vertical, True,
-                                                inverse),
-                          iters, card, level=level, window=f"{w}x{h}",
-                          axis="cols" if vertical else "rows",
-                          inverse=inverse)
-                p["device_gb_per_s"] = (8 * batch * h * w / p["device_ms"]
-                                        / 1e6 if p["device_ms"] else None)
-                passes.append(p)
-    return steps, passes
-
-
-def _pass_plain_(x3: torch.Tensor, h: int, w: int, vertical: bool,
-                 even: bool, inverse: bool) -> torch.Tensor:
-    """One 1D lifting pass in plain torch over the top-left h×w window of
-    every plane of x3, in place: what ``_pass_kernel_`` launches."""
-    fn = inv53_1d if inverse else fwd53_1d
-    win = x3[:, :h, :w]
-    x3[:, :h, :w] = _along_cols(fn, win, even) if vertical else fn(win, even)
-    return x3
-
-
-def long_pass_steps(seed: int = 0) -> list:
-    """The long-line route alone: the level-1 pass along the long side of
-    each ``LONG_SHAPES`` frame, forward and inverse, in place on one
-    device-resident buffer a shape. Each step is a dict of its ``axis``,
-    ``inverse``, ``shape``, ``samples`` (of the window) and its
-    ``kernel`` and ``plain`` calls."""
-    rng = np.random.default_rng(seed)
-    steps = []
-    for shape in LONG_SHAPES:
-        buf = torch.as_tensor(rng.integers(-2048, 2048, shape,
-                                           dtype=np.int32),
-                              device=torch.device("cuda", 0))
-        _, h, w = shape
-        vertical = h > w
-        for inverse in (False, True):
-            args = (buf, h, w, vertical, True, inverse)
-            steps.append({"axis": "cols" if vertical else "rows",
-                          "inverse": inverse, "shape": list(shape),
-                          "samples": buf.numel(),
-                          "kernel": lambda a=args: _pass_kernel_(*a),
-                          "plain": lambda a=args: _pass_plain_(*a)})
     return steps
 
 
-def _launches(fn) -> tuple:
-    """(kernel launches, long-route launches) of one call of fn."""
-    before = (sum(_kernels.launch_counts.values()),
-              sum(_kernels.long_route_counts.values()))
+def _launches(fn) -> int:
+    """The kernel launches of one call of fn."""
+    before = sum(_kernels.launch_counts.values())
     fn()
-    return (sum(_kernels.launch_counts.values()) - before[0],
-            sum(_kernels.long_route_counts.values()) - before[1])
+    return sum(_kernels.launch_counts.values()) - before
+
+
+def long_steps(seed: int = 0) -> list:
+    """The fused stages at each ``LONG_SHAPES`` frame, 5 levels: the
+    forward and inverse 5/3 in place on an int32 buffer (a copy and a
+    launch each), the forward stage of the int32 samples with the
+    "coeffs" epilogue and of uint16 ones with "narrow", and the narrow
+    decode stage of its int16 coefficients, each in the kernel and plain
+    lanes. Each step is a dict of its ``name``, ``shape``, the bytes its
+    bound moves (``bytes``: int32 in and out, 8 a sample; narrow, 4) and
+    its ``kernel`` and ``plain`` calls."""
+    steps = []
+    for shape in LONG_SHAPES:
+        x16, pk = _long_frames(shape, seed)
+        x = x16.to(torch.int32)
+        buf = x - 2048
+        n = x.numel()
+        dec = (LEVELS, 0, 0, 12, False, False, "narrow")
+        for name, nbytes, kernel, plain in (
+                (f"fwd53_{LEVELS}lv_long", 8 * n,
+                 lambda b=buf: fwd53_multilevel_(b, LEVELS),
+                 lambda b=buf: fwd53_multilevel_plain_(b, LEVELS)),
+                (f"inv53_{LEVELS}lv_long", 8 * n,
+                 lambda b=buf: inv53_multilevel_(b, LEVELS),
+                 lambda b=buf: inv53_multilevel_plain_(b, LEVELS)),
+                ("j2k_stage_coeffs_long", 8 * n,
+                 lambda a=x: fwd_stage(a, 2048, LEVELS),
+                 lambda a=x: fwd_stage_plain(a, 2048, LEVELS)),
+                ("j2k_stage_narrow_long", 4 * n + 4,
+                 lambda a=x16: fwd_stage(a, 2048, LEVELS, epilogue="narrow"),
+                 lambda a=x16: fwd_stage_plain(a, 2048, LEVELS,
+                                               epilogue="narrow")),
+                ("j2k_decode_narrow_long", 4 * n,
+                 lambda p=pk: istage.inv_stage(p, *dec),
+                 lambda p=pk: istage.inv_stage_plain(p, *dec))):
+            steps.append({"name": name, "shape": list(shape),
+                          "bytes": nbytes, "kernel": kernel, "plain": plain})
+    return steps
 
 
 def long_profile(iters: int = 10, seed: int = 0, card: str = "") -> list:
-    """Profile lines of the long-line route: each ``long_pass_steps`` step
-    and the 5-level transform of ``LONG_SHAPES[0]``, forward and inverse,
-    in the kernel and plain lanes, with bounds and launches a call."""
+    """Profile lines of ``long_steps``: each step in the kernel and plain
+    lanes, with its bound and kernel launches a call; the stage rows'
+    kernel lane checked against the plain lane first."""
     card = card or card_info()
     lines = []
-    for s in long_pass_steps(seed):
+    for s in long_steps(seed):
+        if not s["name"].endswith("lv_long"):
+            got, want = s["kernel"](), s["plain"]()
+            if isinstance(got, torch.Tensor):
+                got, want = (got,), (want,)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise RuntimeError(f"{s['name']} {s['shape']}: the stage "
+                                   f"differs from its plain version")
         for lane in ("kernel", "plain"):
-            n, n_long = _launches(s[lane])
             lines.append(_line(
-                s[lane], iters, card,
-                step=f"long_pass/{s['axis']}/{'inv' if s['inverse'] else 'fwd'}"
-                     f"/{lane}", shape=s["shape"], launches=n,
-                long_route_launches=n_long,
-                bound_ms=8 * s["samples"] / HBM_BYTES_PER_S * 1e3))
-    shape = LONG_SHAPES[0]
-    buf = torch.as_tensor(np.random.default_rng(seed).integers(
-        -2048, 2048, shape, dtype=np.int32), device=torch.device("cuda", 0))
-    window = sum(shape[0] * h * w * len(_level_passes(h, w, True, True))
-                 for w, h, _, _ in _level_windows(shape[2], shape[1], LEVELS,
-                                                  0, 0))
-    for lane, (fwd, inv, _) in LANES.items():
-        for name, fn in ((f"fwd53_{LEVELS}lv_long/{lane}", fwd),
-                         (f"inv53_{LEVELS}lv_long/{lane}", inv)):
-            def step(fn=fn):
-                return fn(buf, LEVELS)
-            n, n_long = _launches(step)
-            lines.append(_line(step, iters, card, step=name,
-                               shape=list(shape), launches=n,
-                               long_route_launches=n_long,
-                               bound_ms=8 * window / HBM_BYTES_PER_S * 1e3))
+                s[lane], iters, card, step=f"{s['name']}/{lane}",
+                shape=s["shape"], launches=_launches(s[lane]),
+                bound_ms=s["bytes"] / HBM_BYTES_PER_S * 1e3))
     return lines
 
 
@@ -691,10 +657,16 @@ def main(argv=None) -> int:
                     help="only the LEVELS| lines")
     ap.add_argument("--trace", type=int, default=0,
                     help="only N pairs of TRACE| windows")
+    ap.add_argument("--long", action="store_true",
+                    help="only the LONG| lines")
     opts = ap.parse_args(argv)
     w, h = (int(v) for v in opts.size.split("x"))
     card = card_info()
     print(card)
+    if opts.long:
+        for r in long_profile(opts.iters, card=card):
+            print("LONG|" + json.dumps(r), flush=True)
+        return 0
     if opts.levels or opts.trace:
         if opts.levels:
             for r in level_profile(opts.batch, h, w, opts.iters, card=card):
@@ -705,7 +677,7 @@ def main(argv=None) -> int:
         return 0
     for r in run_bench(opts.batch, h, w, opts.iters, card=card):
         print("BENCH|" + json.dumps(r))
-    steps, passes = run_profile(opts.batch, h, w, opts.iters, card=card)
+    steps = run_profile(opts.batch, h, w, opts.iters, card=card)
     for small in (DECODE_SMALL_BATCH, STAGE_SMALL_BATCH):
         steps += stage_profile(small, h, w, opts.iters, card=card)
         steps += decode_profile(small, h, w, opts.iters, card=card)
@@ -714,8 +686,6 @@ def main(argv=None) -> int:
     for r in head_profile((DECODE_SMALL_BATCH, opts.batch), h, w, opts.iters,
                           card=card):
         print("HEAD|" + json.dumps(r))
-    for r in passes:
-        print("PASS|" + json.dumps(r))
     for r in long_profile(opts.iters, card=card):
         print("LONG|" + json.dumps(r))
     return 0

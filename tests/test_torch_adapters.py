@@ -103,7 +103,7 @@ def test_refused_launch_in_the_decode_pipeline_propagates(uid, stage, rng,
     codec.encode(src, enc)
 
     def refused(*a, **k):
-        raise _kernels.KernelLaunchError("dwt53_pass: refused")
+        raise _kernels.KernelLaunchError("j2k_inv_stage: refused")
 
     monkeypatch.setattr(pipeline, stage, refused)
     with pytest.raises(_kernels.KernelLaunchError, match="refused"):

@@ -2,9 +2,11 @@
 
 Covers the shape, parity, origin and level matrix of tests/test_dwt53.py
 and tests/test_wavelet_sizes.py, the geometry helpers the port copies,
-and the kernel lane's host side: its passes run here through a numpy
-model of csrc/dwt53.cu (interleaved lifting with symmetric extension, the
-packed index map), fed the same line/stride arguments as the kernel.
+and the kernel lane's host side: the fused stages' level tables for every
+line length (each checked as csrc/lifting.cuh::read_schedule checks it),
+and the kernel lane run through the numpy models of one launch of each
+stage (tests/test_torch_j2k_*_stage.py) at tiles of 4 samples, over the
+odd-shape matrix and long, thin windows.
 """
 
 import itertools
@@ -143,110 +145,63 @@ def test_tiny_sizes_bit_exact(size, rng):
 
 # ---- kernel lane, host side -------------------------------------------------
 
-def _mirror(q, n):
-    return np.where(q < 0, -q, np.where(q >= n, 2 * (n - 1) - q, q))
+INT32_MAX = (1 << 31) - 1
 
 
-def _window(x3, n_lines, line_stride, n, elem_stride):
-    """The flat planes of x3 and the [lines, n] offsets of the window."""
-    j = np.arange(n_lines)[:, None]
-    i = np.arange(n)[None, :]
-    return (x3.reshape(x3.shape[0], -1),
-            torch.as_tensor(j * line_stride + i * elem_stride))
+def read_schedule(schedule, width, height, inverse):
+    """csrc/lifting.cuh::read_schedule's checks of a stage's table for
+    planes of width × height, and the tiles of each grid row and of the
+    first level counted in an int, as the kernels count them."""
+    tile, words, rows = schedule
+    assert 0 <= len(rows) <= _kernels.STAGE_MAX_ROWS
+    assert 2 <= tile <= _kernels.STAGE_MAX_TILE and tile % 2 == 0
+    assert 0 <= words <= INT32_MAX
+    for k, (kind, w, h, even_x, even_y, in_off, out_off) in enumerate(rows):
+        area = w * h
+        ll = ((w + even_x) >> 1) * ((h + even_y) >> 1)
+        in_words, out_words = (ll, area) if inverse else (area, ll)
+        assert kind in port.ROW_KINDS.values()
+        assert 1 <= w <= width and 1 <= h <= height
+        assert in_off >= -1 and out_off >= -1
+        assert (in_off >= 0) == (k > 0)
+        assert (out_off >= 0) == (k < len(rows) - 1)
+        assert in_off < 0 or in_off + in_words <= words
+        assert out_off < 0 or out_off + out_words <= words
+        assert max(abs(v) for v in (w, h, in_off, out_off)) <= INT32_MAX
+        assert -(-w // tile) * -(-h // tile) <= INT32_MAX
 
 
-def _packed_pos(n, lo0):
-    """Interleaved position of each packed index: lows first."""
-    i = np.arange(n)
-    sn = (n + 1 - lo0) // 2
-    return np.where(i < sn, 2 * i + lo0, 2 * (i - sn) + 1 - lo0)
+@pytest.fixture
+def stage_models(monkeypatch):
+    """Both stages' kernel lane on CPU tensors through their launch models
+    at tiles of 4 samples (the tables built anew, and none left in the
+    caches after the test); no other kernel may launch. Yields the
+    launches' epilogues, forward and inverse in order."""
+    from test_torch_j2k_fwd_stage import _stage_model, no_other_kernels
+    from test_torch_j2k_inv_stage import _inv_stage_model
+
+    launches = []
+    no_other_kernels(monkeypatch, ("j2k_fwd_stage", "j2k_inv_stage"))
+    monkeypatch.setattr(_kernels, "j2k_fwd_stage", _stage_model(launches))
+    monkeypatch.setattr(_kernels, "j2k_inv_stage",
+                        _inv_stage_model(launches))
+    monkeypatch.setattr(port, "_TILE", 4)
+    port.fwd_schedule.cache_clear()
+    port.inv_schedule.cache_clear()
+    yield launches
+    port.fwd_schedule.cache_clear()
+    port.inv_schedule.cache_clear()
 
 
-def _pass_model(x3, n_lines, line_stride, n, elem_stride, lpb, even,
-                inverse):
-    """numpy model of one csrc/dwt53.cu launch on the shared-memory route,
-    with its arguments: the lines lifted in place, step by step."""
-    assert lpb >= 1
-    assert _kernels.dwt53_smem_bytes(lpb, n) <= _kernels.SMEM_MAX_BYTES
-    flat, addr = _window(x3, n_lines, line_stride, n, elem_stride)
-    lo0 = 0 if even else 1
-    packed_pos = _packed_pos(n, lo0)
-    lines = flat[:, addr].numpy().astype(np.int64)  # [B, lines, n]
-    buf = np.empty_like(lines)
-    if inverse:
-        buf[..., packed_pos] = lines
-    else:
-        buf = lines
-    if n == 1:
-        if not even:
-            buf = buf >> 1 if inverse else buf * 2
-    else:
-        def lift(first, rnd, shift, sign):
-            p = np.arange(first, n, 2)
-            t = (buf[..., _mirror(p - 1, n)] + buf[..., _mirror(p + 1, n)]
-                 + rnd) >> shift
-            buf[..., p] += sign * t
-        steps = [(1 - lo0, 0, 1, -1), (lo0, 2, 2, 1)]
-        for first, rnd, shift, sign in (steps[::-1] if inverse else steps):
-            lift(first, rnd, shift, -sign if inverse else sign)
-    out = buf if inverse else buf[..., packed_pos]
-    flat[:, addr] = torch.as_tensor(out.astype(np.int32))
-
-
-def _long_pass_model(x3, n_lines, line_stride, n, elem_stride, even,
-                     inverse):
-    """numpy model of the long-line route of csrc/dwt53.cu: the wrapper's
-    snapshot of the window, read at the strides it returns, then every
-    output sample straight from it, in int32."""
-    flat, addr = _window(x3, n_lines, line_stride, n, elem_stride)
-    copy, snap_line, snap_elem = _kernels._window_snapshot(
-        x3, n_lines, line_stride, n, elem_stride)
-    assert copy.numel() == x3.shape[0] * n_lines * n   # the window alone
-    # a copy even where the window is the whole array: the kernel writes
-    # x3 while it reads the snapshot
-    assert (copy.untyped_storage().data_ptr()
-            != x3.untyped_storage().data_ptr())
-    j, i = np.arange(n_lines)[:, None], np.arange(n)[None, :]
-    snap = copy.reshape(x3.shape[0], -1)[
-        :, torch.as_tensor(j * snap_line + i * snap_elem)].numpy()
-    lo0 = 0 if even else 1
-    q = np.arange(n)
-    low = q % 2 == lo0
-    # the line in interleaved order: the inverse reads packed L and H
-    x = snap[..., np.argsort(_packed_pos(n, lo0))] if inverse else snap
-    if n == 1:
-        out = x if even else (x >> 1 if inverse else x * 2)
-    else:
-        left, right = _mirror(q - 1, n), _mirror(q + 1, n)
-        if inverse:
-            s = x - ((x[..., left] + x[..., right] + 2) >> 2)
-            out = np.where(low, s, x + ((s[..., left] + s[..., right]) >> 1))
-        else:
-            d = x - ((x[..., left] + x[..., right]) >> 1)
-            out = np.where(low, x + ((d[..., left] + d[..., right] + 2) >> 2),
-                           d)[..., _packed_pos(n, lo0)]
-    flat[:, addr] = torch.as_tensor(out.astype(np.int32))
-
-
-def _route_model(routes):
-    """A stand-in for _kernels.dwt53_pass: the route it picks from the
-    shape, then that route's model; each route taken is appended to
-    ``routes``."""
-    def launch(x3, n_lines, line_stride, n, elem_stride, lpb, even,
-               inverse):
-        route = _kernels.dwt53_route(n, lpb)
-        routes.append(route)
-        if route == "long":
-            _long_pass_model(x3, n_lines, line_stride, n, elem_stride, even,
-                             inverse)
-        else:
-            _pass_model(x3, n_lines, line_stride, n, elem_stride, lpb, even,
-                        inverse)
-    return launch
-
-
-def _no_launch(*args, **kwargs):
-    raise AssertionError("this lane must not launch the forward stage")
+def _stage_round_trip(x, levels, origin, want_fwd, want_inv):
+    """x through the forward stage's and then the inverse stage's kernel
+    lane, each one launch, against the reference's coefficients and
+    reconstruction."""
+    got = port._fwd_multilevel_kernel_(torch.tensor(x), levels, *origin)
+    np.testing.assert_array_equal(got.numpy(), want_fwd)
+    back = port._inv_multilevel_kernel_(got, levels, *origin)
+    np.testing.assert_array_equal(back.numpy(), want_inv)
+    np.testing.assert_array_equal(back.numpy(), x)
 
 
 KERNEL_LANE_CASES = [((3, 61, 37), o, lv) for o in [(0, 0), (1, 0), (0, 1),
@@ -256,74 +211,172 @@ KERNEL_LANE_CASES = [((3, 61, 37), o, lv) for o in [(0, 0), (1, 0), (0, 1),
 
 
 @pytest.mark.parametrize("shape,origin,levels", KERNEL_LANE_CASES)
-def test_kernel_lane_model_bit_exact(shape, origin, levels, monkeypatch,
+def test_kernel_lane_model_bit_exact(shape, origin, levels, stage_models,
                                      rng):
-    monkeypatch.setattr(_kernels, "dwt53_pass", _pass_model)
+    """The odd-shape, origin and level matrix through both stages' launch
+    models at tiles of 4 samples: the forward against JAX, the inverse
+    back to the input."""
     x = rng.integers(-4096, 4096, shape).astype(np.int32)
-    t = torch.as_tensor(x)
-    got = port._multilevel_(t.clone(), levels, *origin,
-                            port._fwd_level_kernel_, inverse=False)
-    np.testing.assert_array_equal(got.numpy(), _jax_fwd(x, levels, *origin))
-    back = port._multilevel_(got, levels, *origin, port._inv_level_kernel_,
-                             inverse=True)
-    np.testing.assert_array_equal(back.numpy(), x)
+    _stage_round_trip(x, levels, origin, _jax_fwd(x, levels, *origin), x)
+    assert stage_models == ["coeffs", "coeffs"]
 
 
-@pytest.mark.parametrize("shape,origin,levels", KERNEL_LANE_CASES)
-def test_long_line_model_bit_exact(shape, origin, levels, monkeypatch, rng):
-    """The long-line route's model over the same matrix: with shared
-    memory cut to 9 samples, every line longer than that takes it (frames
-    whose lines all fit take the inverse stage, here its model)."""
-    from test_torch_j2k_inv_stage import _inv_stage_model
+# long and thin windows: tiles of 4 samples along a side of 97-301, one
+# or two samples across (the fold at n = 1 and n = 2, the ×2 and >>1
+# rule), both ways
+THIN_SHAPES = [(1, 2, 301), (1, 301, 2), (2, 5, 129), (2, 129, 5),
+               (1, 1, 97), (1, 97, 1)]
 
-    monkeypatch.setattr(_kernels, "SMEM_MAX_BYTES", 9 * 4)
-    routes = []
-    monkeypatch.setattr(_kernels, "dwt53_pass", _route_model(routes))
-    monkeypatch.setattr(_kernels, "j2k_inv_stage", _inv_stage_model([]))
+
+@pytest.mark.parametrize("levels", [1, 4])
+@pytest.mark.parametrize("origin", [(0, 0), (1, 1)])
+@pytest.mark.parametrize("shape", THIN_SHAPES)
+def test_long_thin_windows_bit_exact(shape, origin, levels, stage_models,
+                                     rng):
+    """Long, thin windows through both stages' launch models, bit-exact
+    against the JAX package's op-by-op fwd53_multilevel and
+    inv53_multilevel."""
     x = rng.integers(-4096, 4096, shape).astype(np.int32)
-    got = port._multilevel_(torch.tensor(x), levels, *origin,
-                            port._fwd_level_kernel_, inverse=False)
-    np.testing.assert_array_equal(got.numpy(), _jax_fwd(x, levels, *origin))
-    back = port._inv_multilevel_kernel_(got, levels, *origin)
-    np.testing.assert_array_equal(back.numpy(), x)
-    assert ("long" in routes) == (max(shape[1:]) > 9)
+    want = np.asarray(ref.fwd53_multilevel(jnp.asarray(x), levels, *origin))
+    back = np.asarray(ref.inv53_multilevel(jnp.asarray(want), levels,
+                                           *origin))
+    _stage_round_trip(x, levels, origin, want, back)
+    assert stage_models == ["coeffs", "coeffs"]
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 60001), (1, 60001, 8)])
-def test_long_lines_take_the_long_route(shape, monkeypatch, rng):
-    """A 60001-sample line, along rows or along columns, takes the
-    long-line route on the card (DICOM allows 65535 samples a side), and
-    its model is bit-exact against JAX forward and back."""
-    routes = []
-    monkeypatch.setattr(_kernels, "dwt53_pass", _route_model(routes))
-    monkeypatch.setattr(_kernels, "j2k_fwd_stage", _no_launch)
+@pytest.mark.parametrize("shape", [(1, 8, 65535), (1, 65535, 8)])
+def test_plain_lane_at_the_longest_lines(shape, rng):
+    """The plain lane, the kernels' reference, bit-exact against the JAX
+    package's op-by-op 5/3 at DICOM's longest side, forward and back."""
     x = rng.integers(-2048, 2048, shape).astype(np.int32)
-    got = port._fwd_multilevel_kernel_(torch.tensor(x), 3, 0, 0)
-    np.testing.assert_array_equal(got.numpy(), _jax_fwd(x, 3))
-    # level 1 along the long side; 30001 samples from level 2 fit
-    assert routes[:2] == (["long", "smem"] if shape[1] > shape[2]
-                          else ["smem", "long"])
-    assert routes.count("long") == 1
-    back = port._inv_multilevel_kernel_(got, 3, 0, 0)
+    got = port.fwd53_multilevel_plain_(torch.tensor(x), 5)
+    want = np.asarray(ref.fwd53_multilevel(jnp.asarray(x), 5))
+    np.testing.assert_array_equal(got.numpy(), want)
+    back = port.inv53_multilevel_plain_(got, 5)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(ref.inv53_multilevel(jnp.asarray(want), 5)))
     np.testing.assert_array_equal(back.numpy(), x)
+
+
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+@pytest.mark.parametrize("n", [58111, 58112, 60001, 65535])
+def test_long_line_tables(n, axis):
+    """Sides of 58111 (the longest the stages' shared memory held before
+    the tile pass took every length), 58112, 60001 and 65535 (DICOM's
+    longest), along rows or along columns, across 1, 2, 16 and n samples:
+    the tables of both stages at 0-6 and 32 levels and both origin
+    parities pass read_schedule's checks, and their first (forward) or
+    last (inverse) row is the whole plane."""
+    for m in (1, 2, 16, n):
+        w, h = (n, m) if axis == "rows" else (m, n)
+        for levels in (*range(7), 32):
+            for x0, y0 in ((0, 0), (1, 1)):
+                fwd = port.fwd_schedule(w, h, levels, x0, y0)
+                inv = port.inv_schedule(w, h, levels, x0, y0)
+                read_schedule(fwd, w, h, inverse=False)
+                read_schedule(inv, w, h, inverse=True)
+                if fwd[2]:
+                    assert fwd[2][0][1:3] == inv[2][-1][1:3] == (w, h)
+                assert inv[1] == fwd[1]
+    if n == 65535:
+        # the most scratch a plane takes: LL1 and, from three levels on,
+        # LL2 of 65535², within the int of the kernels' table
+        assert port.fwd_schedule(n, n, 2)[1] == 32768 ** 2
+        for levels in (3, 5, 32):
+            assert port.fwd_schedule(n, n, levels)[1] == (
+                32768 ** 2 + 16384 ** 2) == 1342177280 <= INT32_MAX
+
+
+def test_stage_refuses_planes_past_its_int32_indices(monkeypatch):
+    """A plane whose table or tiles an int32 cannot count is refused
+    before the launch (meta tensors: shapes without memory); a 65535²
+    plane, DICOM's largest, passes the checks and reaches the launch."""
+    class Launched(Exception):
+        pass
+
+    def launch():
+        raise Launched
+    monkeypatch.setattr(_kernels, "_require", lambda *args: None)
+    monkeypatch.setattr(_kernels, "_load", launch)
+
+    def fwd(h, w, levels):
+        src = torch.empty((1, h, w), dtype=torch.uint16, device="meta")
+        _kernels.j2k_fwd_stage(
+            src, None, port.fwd_schedule(w, h, levels), 0, "narrow",
+            narrow=torch.empty((1, h, w), dtype=torch.int16, device="meta"),
+            maxabs=torch.empty(1, dtype=torch.int32, device="meta"))
+
+    def inv(h, w, levels):
+        src = torch.empty((1, h, w), dtype=torch.int16, device="meta")
+        _kernels.j2k_inv_stage(src, torch.empty((1, h, w), dtype=torch.int32,
+                                                device="meta"),
+                               port.inv_schedule(w, h, levels), 1, "coeffs")
+
+    for call in (fwd, inv):
+        # 100000²: two LL areas of 3,125,000,000 words
+        with pytest.raises(_kernels.KernelLaunchError, match="int32"):
+            call(100000, 100000, 5)
+        # a side past the fold's int period
+        with pytest.raises(_kernels.KernelLaunchError, match="side"):
+            call(1, _kernels.STAGE_MAX_SIDE + 1, 1)
+    with pytest.raises(Launched):
+        fwd(65535, 65535, 5)
+    _kernels._stage_plane("j2k_inv_stage", 65535, 65535,
+                          port.inv_schedule(65535, 65535, 5))
+    with pytest.raises(_kernels.KernelLaunchError, match="code-blocks"):
+        _kernels._stage_plane("j2k_fwd_stage", 65535, 65535,
+                              port.fwd_schedule(65535, 65535, 5), cb=1)
+
+
+def _parent_schedule(width, height, levels, x0, y0, inverse):
+    """The stages' tables as they were built before any line over 58111
+    samples reached them, rebuilt here from their rules (tiles of 64; a
+    forward block row fits one tile; an inverse block row holds at most
+    64² samples; two scratch areas in turns)."""
+    wins = [(w, h, lx0, ly0) for (w, h, lx0, ly0)
+            in ref._level_windows(width, height, levels, x0, y0)
+            if not (w == h == 1 and lx0 % 2 == 0 and ly0 % 2 == 0)]
+    if inverse:
+        wins = wins[::-1]
+        sizes = [w * h for (w, h, _, _) in wins[-2::-1]]
+    else:
+        sizes = [ref.low_len(w, lx0 % 2 == 0) * ref.low_len(h, ly0 % 2 == 0)
+                 for (w, h, lx0, ly0) in wins[:-1]]
+    slots = [0, sizes[0] if sizes else 0]
+    outs = [slots[i % 2] for i in range(len(sizes))]
+    if inverse:
+        outs = outs[::-1]
+    rows = tuple(
+        (int(w * h <= 64 * 64 if inverse else (w <= 64 and h <= 64)), w, h,
+         int(lx0 % 2 == 0), int(ly0 % 2 == 0), outs[i - 1] if i else -1,
+         outs[i] if i < len(wins) - 1 else -1)
+        for i, (w, h, lx0, ly0) in enumerate(wins))
+    return (64, sum(sizes[:2]), rows)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("shape", [(512, 512), (256, 256), (61, 37),
+                                   (48, 40), (16, 16), (5, 1), (1, 6)])
+def test_timed_tables_unchanged(shape, inverse):
+    """The tables of the planes the device bench and the smoke time (512²
+    frames, the mesh's 256² tiles) and of the launch-model matrix are
+    those the stages ran before they took every line length, at 0-6
+    levels and every origin: their rows cannot have moved."""
+    w, h = shape
+    build = port.inv_schedule if inverse else port.fwd_schedule
+    for levels in range(7):
+        for x0, y0 in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            assert build(w, h, levels, x0, y0) == _parent_schedule(
+                w, h, levels, x0, y0, inverse)
 
 
 def test_route_by_shape():
-    """The route of a pass and of the forward stage follows from the
-    shape alone, before any launch."""
-    assert _kernels.dwt53_route(58111, 1) == "smem"
-    for n in (58112, 60001, 65535):
-        assert _kernels.dwt53_route(n, 1) == "long"
-    assert _kernels.dwt53_route(512, 32) == "smem"
-    with pytest.raises(_kernels.KernelLaunchError, match="shared memory"):
-        _kernels.dwt53_route(512, 454)      # 454 lines of 513 words
-    # the fused stage takes every frame whose lines all fit, up to a line
-    # of SMEM_MAX_BYTES / 4 words at its odd pitch
-    for n in (58104, 58111):
+    """Every shape takes one launch of a fused stage, whose table follows
+    from the shape alone, before any launch: lines of every length, up to
+    DICOM's 65535 samples, along rows or along columns."""
+    for n in (58104, 58111, 58112, 60001, 65535):
         assert port.fwd_schedule(n, 3, 5)[2][0][1:3] == (n, 3)
         assert port.fwd_schedule(3, n, 5)[2][0][1:3] == (3, n)
-    assert port.fwd_schedule(58112, 3, 5) is None
-    assert port.fwd_schedule(3, 65535, 5) is None
     # one row a level, finest first: levels 1-3 on the grid, 4 and 5 (64²
     # and 32², one tile each) in one block a plane; each level reads the
     # scratch area the level before wrote and writes the other
@@ -335,6 +388,14 @@ def test_route_by_shape():
                     (grid, 128, 128, 1, 1, 65536, 0),
                     (block, 64, 64, 1, 1, 0, 65536),
                     (block, 32, 32, 1, 1, 65536, -1))
+    # a long line: every level on the grid, 1024 tiles at level 1 of a
+    # 16-row frame, its LL areas in turns
+    tile, words, rows = port.fwd_schedule(65535, 16, 5)
+    assert words == 32768 * 8 + 16384 * 4
+    assert [r[:3] for r in rows] == [(grid, 65535, 16), (grid, 32768, 8),
+                                     (grid, 16384, 4), (grid, 8192, 2),
+                                     (grid, 4096, 1)]
+    assert -(-65535 // tile) * -(-16 // tile) == 1024
     # odd origin, 1-sample windows still run (the ×2 rule); windows of one
     # sample at even parity both ways change nothing and have no row
     assert port.fwd_schedule(1, 1, 2, 1, 1) == (
@@ -342,12 +403,13 @@ def test_route_by_shape():
     assert port.fwd_schedule(1, 1, 3, 0, 0) == (64, 0, ())
 
 
-@pytest.mark.parametrize("source", ["dwt53.cu", "j2k_fwd_stage.cu",
-                                    "j2k_inv_stage.cu", "lifting.cuh"])
+@pytest.mark.parametrize("source", ["j2k_fwd_stage.cu", "j2k_inv_stage.cu",
+                                    "lifting.cuh"])
 def test_lifting_kernels_declare_no_static_shared_memory(source):
-    """The routes give a block SMEM_MAX_BYTES of dynamic shared memory,
-    Hopper's whole opt-in limit: a static __shared__ array beside it would
-    make lines of 58105-58111 samples fail to launch."""
+    """The fused stages take their shared memory as one dynamic buffer,
+    the size the launch asks for (``stage_smem_bytes``), the block
+    reduction's scratch in it too: a static __shared__ array beside it
+    would add to that unseen."""
     text = (_kernels.CSRC / source).read_text()
     decls = [ln.strip() for ln in text.splitlines() if "__shared__" in ln
              and not ln.strip().startswith("//")]
@@ -361,9 +423,11 @@ def test_lanes_by_device():
         port.fwd53_multilevel_(torch.zeros((8, 8), dtype=torch.int32,
                                            device="meta"), 1)
     with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
-        _kernels.dwt53_pass(x, 8, 8, 8, 1, 1, True, False)
-    # a line longer than shared memory holds (DICOM allows 65535 columns)
-    # is no longer refused: it reaches the device check like any other
+        _kernels.j2k_fwd_stage(x, x.clone(), port.fwd_schedule(8, 8, 2), 0,
+                               "coeffs")
+    # a line of any length (DICOM allows 65535 columns) reaches the device
+    # check like any other: no route is refused or falls back
     long = torch.zeros((1, 1, 60000), dtype=torch.int32)
     with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
-        _kernels.dwt53_pass(long, 1, 60000, 60000, 1, 1, True, False)
+        _kernels.j2k_inv_stage(long, long.clone(),
+                               port.inv_schedule(60000, 1, 5), 1, "coeffs")

@@ -333,17 +333,27 @@ def tile(request, monkeypatch):
     dwt53.inv_schedule.cache_clear()
 
 
+def no_other_kernels(monkeypatch, keep):
+    """Every kernel wrapper of _kernels but those named in ``keep`` raises
+    when called: a lane that launches another kernel beside its stage
+    fails."""
+    def refuse(name):
+        def launch(*args, **kwargs):
+            raise AssertionError(f"{name} launched beside {keep}")
+        return launch
+    for name in _kernels.launch_counts:
+        if name not in keep:
+            monkeypatch.setattr(_kernels, name, refuse(name))
+
+
 @pytest.fixture
 def kernel_lane(monkeypatch, tile):
-    """The stage's kernel lane on CPU tensors, through the model; the
-    per-pass kernels must not launch. Yields the launches."""
+    """The stage's kernel lane on CPU tensors, through the model; no other
+    kernel may launch. Yields the launches."""
     launches = []
+    no_other_kernels(monkeypatch, ("j2k_fwd_stage",))
     monkeypatch.setattr(_kernels, "j2k_fwd_stage", _stage_model(launches))
     monkeypatch.setattr(port, "fwd_stage", stage._fwd_stage_kernel)
-
-    def no_pass(*args):
-        raise AssertionError("a lifting pass launched beside the stage")
-    monkeypatch.setattr(_kernels, "dwt53_pass", no_pass)
     return launches
 
 
@@ -602,24 +612,22 @@ def test_stage_widens_each_dtype(kernel_lane, rng):
     assert len(kernel_lane) == 6
 
 
-def test_long_lines_take_the_per_pass_lane(monkeypatch, rng):
-    """A frame with a side over 58111 samples runs the shift, the lifting
-    passes (long-line route along that side) and the epilogue apart."""
-    from test_torch_dwt53 import _route_model
-
-    routes = []
-    monkeypatch.setattr(_kernels, "dwt53_pass", _route_model(routes))
-
-    def no_stage(*args, **kwargs):
-        raise AssertionError("the fused stage cannot hold these lines")
-    monkeypatch.setattr(_kernels, "j2k_fwd_stage", no_stage)
+@pytest.mark.parametrize("tile", [64], indirect=True)
+def test_long_lines_take_the_stage(kernel_lane, rng):
+    """A frame 60001 samples wide (DICOM allows 65535) runs in one launch
+    of the fused stage and no other kernel: its table spreads the tiles
+    along the long side, and the narrow stage comes out bit-exact against
+    the plain lane and the JAX pipeline's stage."""
     x = rng.integers(0, 1 << 12, (1, 4, 60001)).astype(np.uint16)
     got = stage._fwd_stage_kernel(torch.as_tensor(x), 2048, 2, 0, 0,
                                   "narrow", 64)
+    want = stage.fwd_stage_plain(torch.as_tensor(x), 2048, 2, 0, 0,
+                                 "narrow", 64)
+    _eq(got[0].numpy(), want[0].numpy())
+    assert int(got[1]) == int(want[1])
     want = ref._pipeline_device_stage(jnp.asarray(x), 12, False, 2, True)
     _eq(got[0].numpy(), want[0])
-    assert int(got[1]) == int(want[1])
-    assert routes.count("long") == 1
+    assert kernel_lane == ["narrow"]
 
 
 def test_stage_lanes_by_device():

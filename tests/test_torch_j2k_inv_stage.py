@@ -38,8 +38,9 @@ from go_dicom_codec_torch.ops.mct import dc_level_shift, rct_forward
 from test_torch_dwt53 import KERNEL_LANE_CASES
 # `tile`: the fixture of the stages' tile side, shared with those tests
 from test_torch_j2k_fwd_stage import (BLOCK, GARBAGE, GRID, HOPPER_SMEM,
-                                      Scratch, Tile, groups, n_tiles, phases,
-                                      tile, to_packed, xs)
+                                      Scratch, Tile, groups, n_tiles,
+                                      no_other_kernels, phases, tile,
+                                      to_packed, xs)
 
 
 def _rct_inv(y, u, v):
@@ -141,24 +142,23 @@ def _inv_stage_model(launches):
 
 @pytest.fixture
 def kernel_lane(monkeypatch, tile):
-    """The stage's kernel lane on CPU tensors, through the model; the
-    per-pass kernels must not launch. Yields the launches."""
+    """The stage's kernel lane on CPU tensors, through the model; no other
+    kernel may launch. Yields the launches."""
     launches = []
+    no_other_kernels(monkeypatch, ("j2k_inv_stage",))
     monkeypatch.setattr(_kernels, "j2k_inv_stage", _inv_stage_model(launches))
     monkeypatch.setattr(port, "inv_stage", stage._inv_stage_kernel)
-
-    def no_pass(*args):
-        raise AssertionError("a lifting pass launched beside the stage")
-    monkeypatch.setattr(_kernels, "dwt53_pass", no_pass)
     return launches
 
 
 @pytest.fixture
 def set_head(monkeypatch):
-    """Sets the head's budget in samples; the schedules are built anew,
-    and the cache holds none of them after the test."""
+    """Sets the head's budget in samples, its sides unbounded; the
+    schedules are built anew, and the cache holds none of them after the
+    test."""
     def set_budget(samples):
         monkeypatch.setattr(dwt53, "_HEAD_SAMPLES", samples)
+        monkeypatch.setattr(dwt53, "_HEAD_SIDE", None)
         dwt53.inv_schedule.cache_clear()
     yield set_budget
     dwt53.inv_schedule.cache_clear()
@@ -420,13 +420,21 @@ def test_inv_schedule_route_by_shape():
     assert len(phases(rows)) == 4
     assert _kernels.stage_smem_bytes(tile, False) == 68 * 68 * 4
     assert _kernels.stage_smem_bytes(tile, True) == 3 * 68 * 68 * 4
-    # the longest line the stage holds, then the long-line route
-    for n in (58104, 58111):
+    # a table for every line length: the longest the stage's shared memory
+    # held before the tile pass took long lines (58111), then longer ones
+    # up to DICOM's 65535
+    for n in (58104, 58111, 58112, 60001, 65535):
         assert dwt53.inv_schedule(n, 3, 5)[2][-1][1:3] == (n, 3)
         assert dwt53.inv_schedule(3, n, 5)[2][-1][1:3] == (3, n)
-    for n in (58112, 60001, 65535):
-        assert dwt53.inv_schedule(n, 3, 5) is None
-        assert dwt53.inv_schedule(3, n, 5) is None
+    # the head bounds its sides by 64 samples: the coarse 4096×1 window
+    # of a 16-row frame 65535 wide is a grid row, not one block walking
+    # its 64 tiles
+    rows = dwt53.inv_schedule(65535, 16, 5)[2]
+    assert [r[:3] for r in rows] == [(GRID, 4096, 1), (GRID, 8192, 2),
+                                     (GRID, 16384, 4), (GRID, 32768, 8),
+                                     (GRID, 65535, 16)]
+    assert dwt53._inv_schedule(65535, 16, 5, 0, 0, 64 * 64)[2][0][:3] == (
+        BLOCK, 4096, 1)
     # no level to run; 1-sample windows at odd origins still run
     assert dwt53.inv_schedule(7, 5, 0) == (64, 0, ())
     assert dwt53.inv_schedule(1, 1, 2, 1, 1) == (
@@ -435,24 +443,20 @@ def test_inv_schedule_route_by_shape():
         64, 0, ((GRID, 1, 1, 0, 0, -1, -1),))
 
 
-def test_long_lines_take_the_per_pass_lane(monkeypatch, rng):
-    """A frame with a side over 58111 samples runs the widening copy, the
-    lifting passes (long-line route along that side) and the epilogue
-    apart."""
-    from test_torch_dwt53 import _route_model
-
-    routes = []
-    monkeypatch.setattr(_kernels, "dwt53_pass", _route_model(routes))
-
-    def no_stage(*args, **kwargs):
-        raise AssertionError("the fused stage cannot hold these lines")
-    monkeypatch.setattr(_kernels, "j2k_inv_stage", no_stage)
+@pytest.mark.parametrize("tile", [64], indirect=True)
+def test_long_lines_take_the_stage(kernel_lane, rng):
+    """A frame 60001 samples wide (DICOM allows 65535) decodes in one
+    launch of the fused stage and no other kernel, bit-exact against the
+    plain lane and back to its pixels."""
     px = _frames(rng, (1, 1, 4, 60001), 12)
-    packed = _packed(px, 12, False, False, 2, 0, 0).astype(np.int16)
-    got = stage._inv_stage_kernel(torch.as_tensor(packed), 2, 0, 0, 12,
-                                  False, False, "narrow")
+    packed = torch.as_tensor(
+        _packed(px, 12, False, False, 2, 0, 0).astype(np.int16))
+    got = stage._inv_stage_kernel(packed, 2, 0, 0, 12, False, False,
+                                  "narrow")
+    want = stage.inv_stage_plain(packed, 2, 0, 0, 12, False, False, "narrow")
+    _eq(got.to(torch.int32).numpy(), want.to(torch.int32).numpy())
     _eq(got.to(torch.int32).numpy(), px)
-    assert routes.count("long") == 1
+    assert kernel_lane == ["narrow"]
 
 
 def test_stage_lanes_by_device():
