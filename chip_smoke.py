@@ -28,7 +28,12 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    forward and inverse kernels bit-exact (``compare_islow``) at
    [32, 512, 512] and ragged shapes, 8-bit and 12-bit profiles, qualities
    1, 50, 90 and 100, 16-bit samples under the 12-bit profile (the int32
-   wraparound) and ±32768 coefficients with a table of 65535s;
+   wraparound) and ±32768 coefficients with a table of 65535s; the 9/7
+   stages bit-exact (``compare_97``: the forward from uint16, uint8 and
+   float32 samples, the decode in all three epilogues) at [32, 1, 512,
+   512], [8, 3, 512, 512] with the ICT, [2, 1, 16, 65535], [2, 1, 65535,
+   16], one- and two-sample frames and an odd origin, then over the
+   launch models' covering at tiles of 64 and 8;
 4. drives the main path at full size: 32 gray 512×512 12-bit frames and 8
    RGB 512×512 8-bit frames through encode transform → narrow fetch →
    decode stage, each bit-exact back to its input; frames with a side of
@@ -58,7 +63,13 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    registry path and of the same calls through ``make_registry(cuda:0,
    engine="host")``, the device's share of an encode and of a decode
    (torch.profiler over one registry call) and the lossy PSNR
-   go on lines of their own;
+   go on lines of their own; before it, the 9/7 stages' own main path
+   (``lossy_phase``, every call counted from 0): .91 through the registry
+   on 32 gray 512² 12-bit frames (4 ``j2k97_inv_stage`` launches, one a
+   decode chunk, no other kernel) and 8 RGB frames (1, the inverse ICT in
+   it), within ±1 of the host lane, and .93 with a Part-2 matrix (one
+   ``j2k97_fwd_stage`` launch an encoded frame, one "coeffs"
+   ``j2k97_inv_stage`` launch a decoded one), equal to the CPU's;
 6. drives the other codec families through the same registry: exactly
    the fourteen UIDs; HTJ2K .201/.202 on 32 gray 512×512 12-bit frames,
    codestreams byte-identical to ``make_registry(cuda:0, engine="host")``
@@ -85,7 +96,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    ``encode_frames_pipelined`` on cuda:0 and the host engine's and whose
    ``decode_frames_sharded`` is bit-exact, with exactly one fused forward
    stage launch per tile and shard on encode, one fused inverse stage
-   launch per tile and shard on decode and no other kernel; 8 RGB
+   launch per tile and shard on decode and no other kernel (the lossy
+   calls: one 9/7 stage launch per shard each way); 8 RGB
    512² 8-bit frames in four 256² tiles equal to the scalar
    ``J2KEncoder`` on cuda:0, decoding bit-exact with the RCT fused into
    the inverse stage; 8 gray 12-bit frames lossy at quality 85 whose
@@ -126,7 +138,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    JPEG phase, with the forward of 12-bit samples and the inverse of one
    frame timed beside them; the forward stage's with its RGB narrow stage
    beside it; both fused stages' with their narrow stage of [2, 16, 65535]
-   (``long``); the fused stages' ``mesh_launches``; every kernel's
+   (``long``); the 9/7 stages' at [32, 1, 512, 512] with RGB and long
+   rows, their plain versions' device operations and their launches on
+   the lossy main path; the fused stages' ``mesh_launches``; every kernel's
    ``tools_launches`` of the fuzz, transcode and benchmarks runs), after a
    line that names the retired lifting-pass kernels and why, and as its
    last line
@@ -161,10 +175,15 @@ from go_dicom_codec_torch.ops.dwt53 import (_level_windows,
                                             fwd53_multilevel_plain_,
                                             inv53_multilevel_,
                                             inv53_multilevel_plain_)
+from go_dicom_codec_torch.ops import dwt97
 from go_dicom_codec_torch.ops.dwt97 import fwd97_multilevel, inv97_multilevel
 from go_dicom_codec_torch.ops.fdct8x8_quant import (encode_plane_blocks,
                                                     fdct8x8_quant,
                                                     fdct8x8_quant_plain)
+from go_dicom_codec_torch.ops.j2k97_fwd_stage import (fwd97_stage,
+                                                     fwd97_stage_plain)
+from go_dicom_codec_torch.ops.j2k97_inv_stage import (inv97_stage,
+                                                     inv97_stage_plain)
 from go_dicom_codec_torch.ops.j2k_fwd_stage import fwd_stage, fwd_stage_plain
 from go_dicom_codec_torch.ops.j2k_inv_stage import inv_stage, inv_stage_plain
 from go_dicom_codec_torch.ops.jpeg_islow import (fdct_islow, idct_islow,
@@ -186,6 +205,14 @@ SOURCES = {
                       "go_dicom_codec_tpu/pipeline.py:43 (RGB: :56, :368)"),
     "j2k_inv_stage": ("cuda", "go_dicom_codec_torch/csrc/j2k_inv_stage.cu",
                       "go_dicom_codec_tpu/pipeline.py:435"),
+    "j2k97_fwd_stage": ("cuda",
+                        "go_dicom_codec_torch/csrc/j2k97_fwd_stage.cu",
+                        "go_dicom_codec_tpu/codecs/jpeg2000.py:703 "
+                        "(ops/dwt97.py:184 fwd97_multilevel_jit)"),
+    "j2k97_inv_stage": ("cuda",
+                        "go_dicom_codec_torch/csrc/j2k97_inv_stage.cu",
+                        "go_dicom_codec_tpu/pipeline.py:462 "
+                        "(_j2k_decode_device_stage_97)"),
     "jpeg_fdct_islow": ("cuda", "go_dicom_codec_torch/csrc/jpeg_islow.cu",
                         "go_dicom_codec_tpu/ops/dct8x8.py:177"),
     "jpeg_idct_islow": ("cuda", "go_dicom_codec_torch/csrc/jpeg_islow.cu",
@@ -223,6 +250,21 @@ LONG_SHAPES = (((1, 8, 58111), (0, 0)), ((1, 58111, 8), (0, 0)),
 # loads a sample at a time) and whole 16-byte vectors of 16- and 8-bit
 # samples (it loads 16 bytes at a time)
 NARROW_WIDTHS = (58111, 60000, 60001)
+# the 9/7 stages' checks against their plain versions, as (shape [F, C,
+# H, W], origin, levels): the main path's gray and RGB chunks, DICOM's
+# longest side both ways, one- and two-sample frames, an odd origin; the
+# ICT wherever C >= 3
+SHAPES_97 = (((B, 1, H, W), (0, 0), LEVELS),
+             ((RGB_FRAMES, 3, H, W), (0, 0), LEVELS),
+             ((2, 1, 16, 65535), (0, 0), LEVELS),
+             ((2, 1, 65535, 16), (0, 0), LEVELS),
+             ((2, 1, 1, 1), (1, 1), 3), ((2, 3, 1, 2), (0, 0), 3),
+             ((2, 1, 2, 1), (1, 0), 3), ((2, 3, 2, 2), (1, 1), 3),
+             ((2, 1, 1, 65535), (1, 0), LEVELS),
+             ((2, 3, 61, 37), (1, 1), LEVELS))
+# the 9/7 forward stage's sample types: (dtype, bits of content, shift)
+SAMPLES_97 = ((np.uint16, 12, 2048), (np.uint8, 8, 128),
+              (np.float32, 12, 0))
 # the kernels of csrc/dwt53.cu, retired: every line length runs in the
 # fused stages' tile pass
 RETIRED = {"dwt53_fwd_pass": "go_dicom_codec_tpu/ops/dwt53.py:71",
@@ -323,9 +365,11 @@ def saturation(dev, qt) -> None:
     kernel and its plain version on planes of INT32_MAX and INT32_MIN
     samples (DC / 3 is past int32: exact; the rest, float residue of
     2^31-sized sums, within the float64 margin), ``quantize`` and the
-    rounding helper on SATURATE, and the 9/7 decode stage with SATURATE
-    planted in its coefficients, each equal to the same call on the
-    CPU."""
+    rounding helper on SATURATE, and the 9/7 decode stage (the kernel:
+    one launch of j2k97_inv_stage) with SATURATE planted in its
+    coefficients at 0-2 levels (the zero-coefficient lifting steps turn an
+    inf into a NaN, the round sends it to 0), each equal to the same call
+    on the CPU."""
     for sample in (INT32_MAX, INT32_MIN):
         x = torch.full((2, 16, 40), sample, dtype=torch.int32, device=dev)
         got = fdct8x8_quant(x, qt, DCT_SHIFT)
@@ -355,13 +399,14 @@ def saturation(dev, qt) -> None:
             f.view(3, -1)[1:, :len(SATURATE)] = 0.0
             f.view(3, -1)[1:, -1] = torch.tensor([float("inf"),
                                                   float("-inf")])
-        for signed in (True, False):
-            for narrow in (False, True):
-                args = (0, 0, 0, 12, signed, mct, narrow)
-                got = P._j2k_decode_device_stage_97(f.to(dev), *args)
-                check(got.cpu().equal(P._j2k_decode_device_stage_97(f, *args)),
-                      f"_j2k_decode_device_stage_97 {args} differs on the "
-                      f"card")
+        for levels in (0, 1, 2):   # the elementwise epilogue, then lifting
+            for signed in (True, False):
+                for narrow in (False, True):
+                    args = (levels, 0, 0, 12, signed, mct, narrow)
+                    got = P._j2k_decode_device_stage_97(f.to(dev), *args)
+                    check(got.cpu().equal(P._j2k_decode_device_stage_97(
+                        f, *args)), f"_j2k_decode_device_stage_97 {args} "
+                          f"differs on the card")
     print("saturating casts: the DCT kernel and plain version, quantize, "
           "the rounding helper and the 9/7 decode stage agree with the CPU")
 
@@ -445,8 +490,9 @@ def stage_tables(tile: int, head: int) -> None:
     """Set the fused stages' tile side and the inverse stage's head budget
     (ops/dwt53.py); the level tables are built anew."""
     dwt53._TILE, dwt53._HEAD_SAMPLES = tile, head
-    dwt53.fwd_schedule.cache_clear()
-    dwt53.inv_schedule.cache_clear()
+    for fn in (dwt53.fwd_schedule, dwt53.inv_schedule, dwt97.fwd97_schedule,
+               dwt97.inv97_schedule):
+        fn.cache_clear()
 
 
 def compare_dwt_all(rng, dev) -> dict:
@@ -487,6 +533,73 @@ def compare_dwt_all(rng, dev) -> dict:
     print(f"5/3 fused stages and plain lane agree on "
           f"{n} cases (tiles of 64 and 8, head budgets none, 64 and 4096)")
     return {k: max(e[k] for e in errs) for k in errs[0]}
+
+
+def diff97(got: torch.Tensor, want: torch.Tensor) -> float:
+    """0.0 when ``got`` equals ``want`` bit for bit (float32: -0.0 is not
+    +0.0; NaN where NaN), else their largest |difference| (inf where a
+    NaN or inf differs)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return float("inf")
+    if got.is_floating_point():
+        if got.view(torch.int32).equal(want.view(torch.int32)):
+            return 0.0
+        d = (got.double() - want.double()).abs()
+        return float(d.nan_to_num(float("inf")).max()) or float("inf")
+    return float(max_abs_diff(got, want))
+
+
+def compare_97(rng, dev) -> dict:
+    """The 9/7 stages against their plain versions on the card, bit for
+    bit: at SHAPES_97, the forward from each of SAMPLES_97 (the ICT where
+    C >= 3), then the inverse of its coefficients in all three epilogues;
+    then the covering of the launch models' tests (shapes 1×1 to 9×9 on
+    three diagonals and 61×37, every origin parity, levels 0-6) at tiles
+    of 64 and 8. Returns each kernel's max |d|."""
+    errs = {"j2k97_fwd_stage": 0.0, "j2k97_inv_stage": 0.0}
+    cases = 0
+
+    def one(shape, origin, levels, dtype, bits, shift):
+        nonlocal cases
+        mct = shape[1] >= 3
+        if dtype == np.float32:
+            x = rng.uniform(-2048, 2048, shape).astype(np.float32)
+        else:
+            x = rng.integers(0, 1 << bits, shape).astype(dtype)
+        x = torch.as_tensor(x, device=dev)
+        args = (shift, levels, *origin, mct)
+        c = fwd97_stage(x, *args)
+        errs["j2k97_fwd_stage"] = max(errs["j2k97_fwd_stage"], diff97(
+            c, fwd97_stage_plain(x, *args)))
+        for epilogue in ("coeffs", "pixels", "narrow"):
+            args = (levels, *origin, bits, False, mct, epilogue)
+            errs["j2k97_inv_stage"] = max(errs["j2k97_inv_stage"], diff97(
+                inv97_stage(c, *args), inv97_stage_plain(c, *args)))
+        cases += 1
+
+    for shape, origin, levels in SHAPES_97:
+        for dtype, bits, shift in SAMPLES_97:
+            one(shape, origin, levels, dtype, bits, shift)
+    small = sorted({(h, w) for h in range(1, 10)
+                    for w in (h, 10 - h, (4 * h) % 9 + 1)})
+    covering = [((2, 3) + hw, (i % 2, i // 2 % 2), i % 7)
+                for i, hw in enumerate(small)]
+    covering += [((2, 3, 61, 37), (lv % 2, lv // 2 % 2), lv)
+                 for lv in range(7)]
+    try:
+        for tile in (64, 8):
+            stage_tables(tile, 64 * 64)
+            for shape, origin, levels in covering:
+                one(shape, origin, levels, *SAMPLES_97[cases % 3])
+    finally:
+        stage_tables(64, 64 * 64)
+    check(not any(errs.values()), f"the 9/7 stages differ from their plain "
+          f"versions: {errs}")
+    print(f"9/7 stages == plain, bit for bit, on {cases} cases: "
+          f"{[s for s, _, _ in SHAPES_97]} from uint16, uint8 and float32 "
+          f"(ICT where C >= 3), the inverse in coeffs, pixels and narrow; "
+          f"the covering at tiles of 64 and 8")
+    return errs
 
 
 def compare_islow(dev) -> dict:
@@ -714,6 +827,59 @@ def lifted(shape) -> int:
                                                 0, 0))
 
 
+def time_97(dev, rng) -> dict:
+    """The 9/7 stages' times (``timing``), plain ms, the plain version's
+    device operations a call, bound ms and bound by: the forward stage of
+    [B, 1, H, W] 12-bit uint16 frames to float32 coefficients (2 bytes in
+    and 4 out a sample; ~7 float operations a sample and 1D pass of a
+    level, 2 to widen), beside it [RGB_FRAMES, 3, H, W] uint8 with the ICT
+    (1 byte in, 4 out; the ICT 5 operations a sample) and [2, 1, 16, 65535]
+    (``long``); the decode stage of their coefficients, quantized with the
+    device bench's step and dequantized, to uint16 ("narrow": 4 bytes in
+    and 2 out a sample; ~10 operations a sample and pass, 4 in the
+    epilogue, the inverse ICT 5 more)."""
+    x16 = torch.as_tensor(rng.integers(0, 1 << 12, (B, 1, H, W))
+                          .astype(np.uint16), device=dev)
+    rgb = torch.as_tensor(rng.integers(0, 256, (RGB_FRAMES, 3, H, W))
+                          .astype(np.uint8), device=dev)
+    long16 = torch.as_tensor(rng.integers(0, 1 << 12, (2, 1, 16, 65535))
+                             .astype(np.uint16), device=dev)
+    out = {"j2k97_fwd_stage": {}, "j2k97_inv_stage": {}}
+    for key, x, bits, mct in (("gray", x16, 12, False), ("rgb", rgb, 8, True),
+                              ("long", long16, 12, False)):
+        shift, n = 1 << (bits - 1), x.numel()
+        window = lifted(x.shape)
+        fwd = lambda: fwd97_stage(x, shift, LEVELS, mct=mct)
+        fwd_plain = lambda: fwd97_stage_plain(x, shift, LEVELS, mct=mct)
+        c = fwd()
+        f = (torch.sign(c) * torch.floor(c.abs() / device_bench.STEP_97)
+             * device_bench.STEP_97)
+        args = (LEVELS, 0, 0, bits, False, mct, "narrow")
+        inv = lambda: inv97_stage(f, *args)
+        inv_plain = lambda: inv97_stage_plain(f, *args)
+        rows = {
+            "j2k97_fwd_stage": (fwd, fwd_plain, (x.element_size() + 4) * n,
+                                7 * window + (7 if mct else 2) * n),
+            "j2k97_inv_stage": (inv, inv_plain, 6 * n,
+                                10 * window + (9 if mct else 4) * n)}
+        for name, (kernel, plain, nbytes, nops) in rows.items():
+            row = {**timing(kernel),
+                   "plain_ms": device_bench.time_ms(plain)[0],
+                   "plain_device_ops": device_bench.device_ms(plain)[2],
+                   "shape": list(x.shape), **bound(nbytes, nops)}
+            if key == "gray":
+                out[name].update(row)
+            else:
+                out[name][key] = row
+    for name, tk in out.items():
+        print(f"{name}: one call {tk['device_ops']} device operation(s), "
+              f"its plain version {tk['plain_device_ops']:.0f}; event "
+              f"{tk['ms']:.4f} ms, device {tk['device_ms']} ms, host "
+              f"{tk['host_ms']:.4f} ms, plain {tk['plain_ms']:.4f} ms, bound "
+              f"{tk['bound_ms']:.4f} ms ({tk['bound_by']})")
+    return out
+
+
 def time_kernels(dev, rng, qt) -> dict:
     """Each kernel's times (``timing``), plain ms, bound ms and bound by
     at the main path's shapes. The fused forward stage: the pipelines'
@@ -771,9 +937,13 @@ def time_kernels(dev, rng, qt) -> dict:
             lambda: inv_stage_plain(long_pk, *args))[0],
         **bound(4 * long_pk.numel(),
                 4 * lifted(long16.shape) + 4 * long_pk.numel())}
+    t.update(time_97(dev, rng))
     for tk in (t["j2k_fwd_stage"], t["j2k_fwd_stage"]["rgb"],
                t["j2k_fwd_stage"]["long"], t["j2k_inv_stage"],
-               t["j2k_inv_stage"]["long"]):
+               t["j2k_inv_stage"]["long"], t["j2k97_fwd_stage"],
+               t["j2k97_inv_stage"],
+               *(t[k][sub] for k in ("j2k97_fwd_stage", "j2k97_inv_stage")
+                 for sub in ("rgb", "long"))):
         check(tk["device_ms"] is None or tk["device_ops"] == 1,
               f"a fused stage call ran {tk['device_ops']} device operations")
     x = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W), dtype=np.int32),
@@ -1124,13 +1294,17 @@ def codec_phase(rng, dev, card: str) -> dict:
             info, src = pixel_data(rgb, 8, True)
             enc = gdc.MemoryPixelData(info=info, encapsulated=True)
             dec = gdc.MemoryPixelData(info=info)
+            lossy = uid == gdc.uids.JPEG_2000_MC_LOSSY
+            fwd_name, inv_name = (("j2k97_fwd_stage", "j2k97_inv_stage")
+                                  if lossy else ("j2k_fwd_stage",
+                                                 "j2k_inv_stage"))
             _kernels.reset_launch_counts()
             reg.get_codec(uid).encode(src, enc, params)
-            fwd = _kernels.launch_counts["j2k_fwd_stage"]
+            fwd = _kernels.launch_counts[fwd_name]
             dct = _kernels.launch_counts["fdct8x8_quant"]
             _kernels.reset_launch_counts()
             reg.get_codec(uid).decode(enc, dec)
-            inv = _kernels.launch_counts["j2k_inv_stage"]
+            inv = _kernels.launch_counts[inv_name]
             check(dct == _kernels.launch_counts["fdct8x8_quant"] == 0,
                   f"{uid}: the codec path launched the float DCT")
             got.append(([enc.get_frame(i) for i in range(2)],
@@ -1143,13 +1317,13 @@ def codec_phase(rng, dev, card: str) -> dict:
         err = max(int(np.abs(np.frombuffer(d, np.uint8).astype(np.int64)
                              - f.reshape(-1)).max())
                   for d, f in zip(card_dec, rgb))
+        check(fwd > 0 and inv > 0, f"{uid}: the forward or the inverse "
+              f"stage did not launch ({fwd}, {inv})")
         if uid == gdc.uids.JPEG_2000_MC_LOSSLESS:
-            check(fwd > 0 and inv > 0, f"{uid}: the forward or the "
-                  f"inverse stage did not launch ({fwd}, {inv})")
             check(err <= 1, f"{uid}: round trip off by {err}")
         print(f"{uid} Part-2 matrix, 2 × [{H}, {W}, 3]: card == CPU, "
               f"codestreams and decode; max |decode - source| {err}; "
-              f"{fwd} forward and {inv} inverse stage launches")
+              f"{fwd} {fwd_name} and {inv} {inv_name} launches")
 
     # the int16-overflow redo: no 12-bit frame overflows, so lower the
     # bound; the redo runs on the pipeline's side stream
@@ -1181,6 +1355,97 @@ def codec_phase(rng, dev, card: str) -> dict:
     for name, r in measured.items():
         print("RATE " + json.dumps({"path": name, "card": card, **r}))
     return launches
+
+
+# ---- the lossy main path: the 9/7 stages ----------------------------------
+
+PART2_MATRIX = [[0.6, 0.5, 0.5], [0.5, 0.6, -0.5], [0.5, -0.5, 0.6]]
+
+
+def lossy_phase(rng, dev) -> dict:
+    """The 9/7 stages' main path through ``make_registry(cuda:0)``: .91 of
+    B gray 512² 12-bit frames (the encode on the native host 9/7, as the
+    reference; the decode one ``j2k97_inv_stage`` launch a chunk of 8 and
+    no other kernel), of RGB_FRAMES RGB 8-bit frames (one launch, the
+    inverse ICT in it), each within ±1 of the native host lane; then .93
+    (a Part-2 matrix) on 2 RGB frames: one ``j2k97_fwd_stage`` launch an
+    encoded frame after the matrix, one "coeffs" ``j2k97_inv_stage`` launch
+    a decoded frame before it, equal to the same registry on the CPU. Each
+    call is counted from 0 just before it (``registry_round_trip``).
+    Returns the phase's launches, summed over its calls."""
+    registry = gdc.make_registry(dev)
+    host_registry = gdc.make_registry(dev, engine="host")
+    cpu_registry = gdc.make_registry(torch.device("cpu"))
+    profiling.enable_global_timer()
+    total = dict.fromkeys(_kernels.launch_counts, 0)
+
+    def add(lc):
+        for way in lc.values():
+            for k, v in way.items():
+                total[k] += v
+    t0 = time.perf_counter()
+    for name, n, bits, rgb in (("gray", B, 12, False),
+                               ("rgb", RGB_FRAMES, 8, True)):
+        frames = (np.stack([phantom(rng, n, bits) for _ in range(3)],
+                           axis=-1) if rgb else phantom(rng, n, bits))
+        streams, decoded, lc, _, runs = registry_round_trip(
+            registry, host_registry, U.JPEG_2000_LOSSY, frames, bits, rgb)
+        add(lc)
+        dchunks = profiling.EVENTS["pipeline.decode"]["chunks"]
+        check(runs == {"pipeline.decode": (1, "device")},
+              f".91 {name}: the decode pipeline did not run on the device "
+              f"{runs}")
+        check(not any(lc["encode"].values()), f".91 {name}: the encode "
+              f"(native host 9/7) launched {lc['encode']}")
+        check(dchunks == -(-n // 8)
+              and only(lc["decode"], "j2k97_inv_stage", dchunks),
+              f".91 {name}: the decode did not run one j2k97_inv_stage "
+              f"launch a chunk ({dchunks}) and no other kernel "
+              f"{lc['decode']}")
+        host_dec = np.stack(P.decode_frames_pipelined(
+            streams, engine="host", device=dev)).reshape(frames.shape)
+        err = int(np.abs(decoded.astype(np.int64) - host_dec).max())
+        check(err <= 1, f".91 {name}: the decode differs from the host "
+              f"lane by {err}")
+        mse = float(np.mean((decoded.astype(np.float64) - frames) ** 2))
+        print(f".91 {name} [{n}, {H}, {W}{', 3' if rgb else ''}]: "
+              f"{lc['decode']['j2k97_inv_stage']} j2k97_inv_stage launches "
+              f"for {dchunks} decode chunks, no other kernel; max |registry "
+              f"- host lane| {err}; PSNR "
+              f"{10 * np.log10(((1 << bits) - 1) ** 2 / mse):.2f} dB")
+    rgb = np.stack([phantom(rng, 2, 8) for _ in range(3)], axis=-1)
+    params = gdc.Parameters(mct_matrix=PART2_MATRIX,
+                            mct_inverse=np.linalg.inv(PART2_MATRIX).tolist())
+    got = []
+    for reg in (registry, cpu_registry):
+        info, src = pixel_data(rgb, 8, True)
+        enc = gdc.MemoryPixelData(info=info, encapsulated=True)
+        dec = gdc.MemoryPixelData(info=info)
+        _kernels.reset_launch_counts()
+        reg.get_codec(U.JPEG_2000_MC_LOSSY).encode(src, enc, params)
+        lc = {"encode": dict(_kernels.launch_counts)}
+        _kernels.reset_launch_counts()
+        reg.get_codec(U.JPEG_2000_MC_LOSSY).decode(enc, dec)
+        torch.cuda.synchronize()
+        lc["decode"] = dict(_kernels.launch_counts)
+        got.append(([enc.get_frame(i) for i in range(2)],
+                    [dec.get_frame(i) for i in range(2)], lc))
+    (card_enc, card_dec, lc), (cpu_enc, cpu_dec, cpu_lc) = got
+    add(lc)
+    check(only(lc["encode"], "j2k97_fwd_stage", 2)
+          and only(lc["decode"], "j2k97_inv_stage", 2),
+          f".93: not one 9/7 stage launch a frame each way {lc}")
+    check(not any(v for way in cpu_lc.values() for v in way.values()),
+          ".93: the CPU registry launched a kernel")
+    check(card_enc == cpu_enc and card_dec == cpu_dec,
+          ".93: the card's codestreams or decode differ from the CPU's")
+    print(f".93 Part-2 matrix 2 × [{H}, {W}, 3]: card == CPU, codestreams "
+          f"and decode; launches {json.dumps(lc)}")
+    check(total["j2k97_fwd_stage"] > 0 and total["j2k97_inv_stage"] > 0,
+          "a 9/7 stage never launched on its main path")
+    print(f"lossy main path {time.perf_counter() - t0:.2f} s, launches "
+          f"{total}")
+    return total
 
 
 # ---- the other codec families ---------------------------------------------
@@ -1524,7 +1789,8 @@ def jpeg_phase(rng, dev, card: str) -> dict:
 # ---- the mesh phase ------------------------------------------------------
 
 MESH_ROUNDS = 3
-MESH_STAGES = ("j2k_fwd_stage", "j2k_inv_stage")
+MESH_STAGES = ("j2k_fwd_stage", "j2k_inv_stage", "j2k97_fwd_stage",
+               "j2k97_inv_stage")
 
 
 def counted(fn):
@@ -1536,13 +1802,16 @@ def counted(fn):
     return r, dict(_kernels.launch_counts)
 
 
-def check_stage_launches(label: str, lc: dict, fwd: int, inv: int) -> None:
-    """The fused stages launched ``fwd`` and ``inv`` times and no other
-    kernel launched."""
-    check(lc["j2k_fwd_stage"] == fwd and lc["j2k_inv_stage"] == inv
-          and not any(v for k, v in lc.items()
-                      if k not in ("j2k_fwd_stage", "j2k_inv_stage")),
-          f"{label}: launches {lc}, want {fwd} forward, {inv} inverse")
+def check_stage_launches(label: str, lc: dict, fwd: int, inv: int,
+                         lossy: bool = False) -> None:
+    """The fused 5/3 stages (the 9/7's where ``lossy``) launched ``fwd``
+    and ``inv`` times and no other kernel launched."""
+    names = (("j2k97_fwd_stage", "j2k97_inv_stage") if lossy
+             else ("j2k_fwd_stage", "j2k_inv_stage"))
+    check(lc[names[0]] == fwd and lc[names[1]] == inv
+          and not any(v for k, v in lc.items() if k not in names),
+          f"{label}: launches {lc}, want {fwd} {names[0]}, {inv} "
+          f"{names[1]}")
 
 
 def blocks(n: int, positions: int) -> int:
@@ -1656,7 +1925,8 @@ def mesh_phase(rng, dev, card: str, cards: list) -> dict:
     frames in four 256² tiles equal to the scalar ``J2KEncoder`` on cuda:0
     (the RCT fused into the inverse stage); 8 gray 12-bit frames lossy at
     quality 85 equal to the scalar encoder's device lane and decoding
-    within ±1 of the scalar decoder's; a COC batch
+    within ±1 of the scalar decoder's, one 9/7 stage launch per shard each
+    way; a COC batch
     (component 1 at 4 levels) through the heterogeneous decode, equal to
     ``J2KDecoder`` a frame; the dry run on four shards of cuda:0 (and on
     every card where there are two or more); the two-process run; then
@@ -1731,11 +2001,19 @@ def mesh_phase(rng, dev, card: str, cards: list) -> dict:
         check_stage_launches(f"mesh {name} RGB decode", lc, 0, 4 * nb_rgb)
         tally(lc, "decode")
 
-        streams = encode_frames_sharded(lossy, 12, mesh=mesh,
-                                        params=p_lossy)
+        nb_lossy = blocks(RGB_FRAMES, positions)
+        streams, lc = counted(lambda: encode_frames_sharded(
+            lossy, 12, mesh=mesh, params=p_lossy))
         check(streams == scalar_lossy, f"mesh {name}: lossy streams differ "
               f"from the scalar encoder's")
-        dec = np.stack(decode_frames_sharded(streams, mesh=mesh))
+        check_stage_launches(f"mesh {name} lossy encode", lc, nb_lossy, 0,
+                             lossy=True)
+        tally(lc, "encode")
+        dec, lc = counted(lambda: decode_frames_sharded(streams, mesh=mesh))
+        dec = np.stack(dec)
+        check_stage_launches(f"mesh {name} lossy decode", lc, 0, nb_lossy,
+                             lossy=True)
+        tally(lc, "decode")
         want = np.stack([J2KDecoder(device=dev).decode(s)[0]
                          for s in streams])
         lossy_err = int(np.abs(dec.astype(np.int64) - want).max())
@@ -1759,7 +2037,8 @@ def mesh_phase(rng, dev, card: str, cards: list) -> dict:
               f"launches; {RGB_FRAMES} RGB in 4 tiles == scalar encoder, "
               f"decode bit-exact, {4 * nb_rgb} launches each way; lossy "
               f"q85 streams == scalar encoder, decode within {lossy_err} "
-              f"of the scalar decoder "
+              f"of the scalar decoder, {nb_lossy} 9/7 stage launches each "
+              f"way "
               f"(max |decode - source| {src_err}); COC batch == J2KDecoder")
 
     summaries = [dryrun_multichip([dev] * 4)]
@@ -2093,6 +2372,7 @@ def main() -> int:
     errs["j2k_inv_stage"] = max(errs["j2k_inv_stage"], compare_inv_stage(
         fwd_stage_plain(x, 2048, LEVELS)))
     errs.update(compare_islow(dev))
+    errs.update(compare_97(rng, dev))
     torch.cuda.synchronize()
 
     _kernels.reset_launch_counts()
@@ -2114,6 +2394,10 @@ def main() -> int:
     # before the profiler-heavy phases, after which torch.profiler drops
     # more of the kernel events the device times are read from
     times = time_kernels(dev, np.random.default_rng(SEED), qt)
+    # the 9/7 stages' own main path, counted from 0 call by call
+    lossy = lossy_phase(rng, dev)
+    for name in ("j2k97_fwd_stage", "j2k97_inv_stage"):
+        launches[name] = lossy[name]
     codec_phase(rng, dev, card)
     families = families_phase(rng, dev, card)
     launches.update(jpeg_phase(rng, dev, card))
@@ -2133,13 +2417,14 @@ def main() -> int:
                         "bound_ms": tk["bound_ms"],
                         "bound_by": tk["bound_by"], "library_ms": None})
         for extra in ("xplus1_ms", "xplus1_device_ms", "uint16_12bit",
-                      "per_frame", "rgb", "long"):
+                      "per_frame", "rgb", "long", "plain_device_ops"):
             if extra in tk:
                 kernels[-1][extra] = tk[extra]
         if name in ("j2k_fwd_stage", "j2k_inv_stage"):
             kernels[-1]["htj2k_201_launches"] = {
                 "encode": ht["encode"][name], "decode": ht["decode"][name],
                 "frames": B}
+        if name in MESH_STAGES:
             kernels[-1]["mesh_launches"] = {
                 way: mesh_launches[way][name] for way in mesh_launches}
         kernels[-1]["tools_launches"] = {

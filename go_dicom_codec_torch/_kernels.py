@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launch_counts = {"fdct8x8_quant": 0, "j2k_fwd_stage": 0,
-                 "j2k_inv_stage": 0, "jpeg_fdct_islow": 0,
+                 "j2k_inv_stage": 0, "j2k97_fwd_stage": 0,
+                 "j2k97_inv_stage": 0, "jpeg_fdct_islow": 0,
                  "jpeg_idct_islow": 0}
 
 _lib = None
@@ -119,10 +120,15 @@ def _load():
                                        i, i, i, p, p, p, p, p]
     lib.gdct_j2k_inv_stage.argtypes = [p, i, p, p, i, i, i, i, p, i, i, i, i,
                                        i, i, i, i, p]
+    lib.gdct_j2k97_fwd_stage.argtypes = [p, i, p, p, i, i, i, i, i, i, p, i,
+                                         i, i, p]
+    lib.gdct_j2k97_inv_stage.argtypes = [p, p, p, i, i, i, i, p, i, i, i, i,
+                                         i, i, i, i, p]
     lib.gdct_jpeg_fdct_islow.argtypes = [p, i, p, p, ll, i, i, i, p]
     lib.gdct_jpeg_idct_islow.argtypes = [p, p, i, p, ll, i, i, i, i, p]
     for fn in (lib.gdct_fdct8x8_quant, lib.gdct_j2k_fwd_stage,
-               lib.gdct_j2k_inv_stage, lib.gdct_jpeg_fdct_islow,
+               lib.gdct_j2k_inv_stage, lib.gdct_j2k97_fwd_stage,
+               lib.gdct_j2k97_inv_stage, lib.gdct_jpeg_fdct_islow,
                lib.gdct_jpeg_idct_islow):
         fn.restype = ctypes.c_int
     lib.gdct_error_string.argtypes = [ctypes.c_int]
@@ -209,11 +215,11 @@ def _stage_plane(name: str, h: int, w: int, schedule, cb: int = 0):
     return table
 
 
-def _scratch(schedule, planes: int, like):
-    """The stage's int32 scratch, P × the schedule's words a plane; None
-    when the schedule needs none."""
+def _scratch(schedule, planes: int, like, dtype=torch.int32):
+    """The stage's scratch (int32 for the 5/3, float32 for the 9/7), P ×
+    the schedule's words a plane; None when the schedule needs none."""
     words = schedule[1] * planes
-    return (torch.empty(words, dtype=torch.int32, device=like.device)
+    return (torch.empty(words, dtype=dtype, device=like.device)
             if words else None)
 
 
@@ -362,6 +368,122 @@ def j2k_inv_stage(src: torch.Tensor, out: torch.Tensor, schedule,
             hi, _stream(src))
     launch_counts["j2k_inv_stage"] += 1
     _check(lib, err, "j2k_inv_stage")
+
+
+# The 9/7 stages' halos (csrc/lifting97.cuh): a sample a lifting step,
+# four forward and six inverse.
+FWD97_HALO, INV97_HALO = 4, 6
+# dtypes the 9/7 forward stage reads as they are, with their code in
+# csrc/j2k97_fwd_stage.cu (float32: shifted already, shift 0)
+FWD97_STAGE_DTYPES = {torch.uint16: 0, torch.int16: 1, torch.int32: 2,
+                      torch.uint8: 3, torch.float32: 4}
+
+
+def stage97_smem_bytes(tile: int, halo: int, ict: bool) -> int:
+    """Shared memory of one block of a 9/7 stage: a buffer of the tile and
+    its halo, (tile + 2·halo)² float32 words, three with the ICT."""
+    return (3 if ict else 1) * (tile + 2 * halo) ** 2 * 4
+
+
+def _planes97(name: str, src: torch.Tensor, out: torch.Tensor, comps: int,
+              out_dtype: torch.dtype):
+    """The checks both 9/7 wrappers make of ``src`` [P, H, W] and ``out``
+    (``out_dtype``, src's shape and device, never src itself)."""
+    if (src.dim() != 3 or src.numel() == 0 or comps < 1
+            or src.shape[0] % comps):
+        raise KernelLaunchError(f"{name}: bad shape {tuple(src.shape)} of "
+                                f"{comps} components")
+    _require(out, out_dtype, f"{name} out")
+    if out.shape != src.shape or out.device != src.device:
+        raise KernelLaunchError(f"{name}: out needs {tuple(src.shape)} on "
+                                f"{src.device}, got {tuple(out.shape)} on "
+                                f"{out.device}")
+    if out.data_ptr() == src.data_ptr():
+        raise KernelLaunchError(f"{name}: src is out; the stage never "
+                                f"writes its input")
+
+
+def j2k97_fwd_stage(src: torch.Tensor, out: torch.Tensor, schedule,
+                    shift: int, comps: int = 1, mct: bool = False) -> None:
+    """Launch the 9/7 forward stage once: samples ``src`` [P, H, W] (a
+    dtype of ``FWD97_STAGE_DTYPES``; never ``out`` itself) → less
+    ``shift`` in wrapping int32, rounded to float32 (a float32 ``src`` is
+    taken as it is, with ``shift`` 0) → the ICT of components 0-2 of each
+    frame of ``comps`` planes when ``mct`` and ``comps`` >= 3 → the levels
+    of ``schedule`` → the float32 packed coefficients ``out`` [P, H, W].
+
+    ``schedule`` is ``ops/dwt97.py:fwd97_schedule``'s (tile, scratch words
+    a plane, rows); the levels pass their LL through a float32 scratch of
+    P × the schedule's words. The largest plane and the int32 checks are
+    the 5/3 stage's (``j2k_fwd_stage``, ``_stage_plane``).
+    """
+    if src.dtype not in FWD97_STAGE_DTYPES:
+        raise KernelLaunchError(f"j2k97_fwd_stage: no route for {src.dtype}")
+    _require(src, src.dtype, "j2k97_fwd_stage src")
+    if src.dtype == torch.float32 and shift:
+        raise KernelLaunchError("j2k97_fwd_stage: float32 samples take no "
+                                "shift")
+    _planes97("j2k97_fwd_stage", src, out, comps, torch.float32)
+    p, h, w = src.shape
+    table = _stage_plane("j2k97_fwd_stage", h, w, schedule)
+    scratch = _scratch(schedule, p, src, torch.float32)
+    lib = _load()
+    with torch.cuda.device(src.device):
+        err = lib.gdct_j2k97_fwd_stage(
+            src.data_ptr(), FWD97_STAGE_DTYPES[src.dtype], out.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), p // comps, comps,
+            h, w, _int32(shift), int(bool(mct)), table, len(schedule[2]),
+            schedule[0], schedule[1], _stream(src))
+    launch_counts["j2k97_fwd_stage"] += 1
+    _check(lib, err, "j2k97_fwd_stage")
+
+
+def j2k97_inv_stage(src: torch.Tensor, out: torch.Tensor, schedule,
+                    comps: int, epilogue: str, mct: bool = False,
+                    bits: int = 16, signed: bool = False) -> None:
+    """Launch the 9/7 inverse stage once: dequantized float32 coefficients
+    ``src`` [P, H, W] (never ``out`` itself) → the levels of ``schedule``
+    → the epilogue into ``out`` [P, H, W]. The P planes are frames of
+    ``comps`` components each.
+
+    ``schedule`` is ``ops/dwt97.py:inv97_schedule``'s (tile, scratch words
+    a plane, rows). Epilogue "coeffs" writes the float32 reconstruction;
+    "pixels" int32 samples and "narrow" 16-bit ones (uint16, or int16 when
+    ``signed``, clipped to the ``bits``-bit range): the inverse ICT of
+    components 0-2 when ``mct`` and ``comps`` >= 3, round half to even
+    (saturating, NaN → 0), then + 2^(bits-1) unless ``signed``. The levels
+    pass their reconstruction through a float32 scratch of P × the
+    schedule's words. The largest plane and the int32 checks are the 5/3
+    stage's (``j2k_inv_stage``, ``_stage_plane``).
+    """
+    _require(src, torch.float32, "j2k97_inv_stage src")
+    if epilogue not in INV_STAGE_EPILOGUES:
+        raise KernelLaunchError(f"j2k97_inv_stage: no epilogue {epilogue!r}")
+    lo = hi = 0
+    if epilogue == "narrow":
+        if not 1 <= bits <= 16:
+            raise KernelLaunchError(f"j2k97_inv_stage: {bits} bits do not "
+                                    f"narrow to 16")
+        want = torch.int16 if signed else torch.uint16
+        lo, hi = ((-(1 << (bits - 1)), (1 << (bits - 1)) - 1) if signed
+                  else (0, (1 << bits) - 1))
+    else:
+        want = torch.float32 if epilogue == "coeffs" else torch.int32
+    _planes97("j2k97_inv_stage", src, out, comps, want)
+    p, h, w = src.shape
+    table = _stage_plane("j2k97_inv_stage", h, w, schedule)
+    scratch = _scratch(schedule, p, src, torch.float32)
+    dc = 0 if signed else 1 << (bits - 1)
+    lib = _load()
+    with torch.cuda.device(src.device):
+        err = lib.gdct_j2k97_inv_stage(
+            src.data_ptr(), out.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), p // comps, comps,
+            h, w, table, len(schedule[2]), schedule[0], schedule[1],
+            INV_STAGE_EPILOGUES[epilogue], int(bool(mct)), _int32(dc), lo,
+            hi, _stream(src))
+    launch_counts["j2k97_inv_stage"] += 1
+    _check(lib, err, "j2k97_inv_stage")
 
 
 def fdct8x8_quant(x: torch.Tensor, out: torch.Tensor, d: torch.Tensor,

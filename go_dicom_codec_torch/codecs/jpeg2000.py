@@ -26,14 +26,14 @@ from ..codestream import j2k
 from ..entropy.ebcot import T1Decoder, T1Encoder
 from ..errors import CorruptStreamError, UnsupportedFormatError
 from ..ops.convert import round_to_int32_sat
-from ..ops.dwt97 import fwd97_multilevel, inv97_multilevel
+from ..ops.j2k97_fwd_stage import fwd97_stage
+from ..ops.j2k97_inv_stage import inv97_stage
 from ..ops.j2k_fwd_stage import fwd_stage
 from ..ops.j2k_inv_stage import inv_stage
-from ..ops.mct import (dc_level_shift, dc_level_shift_np, ict_forward,
-                       ict_inverse, inv_dc_level_shift,
-                       inv_dc_level_shift_np, mct_matrix_forward,
-                       rct_forward, rct_forward_np, rct_inverse,
-                       rct_inverse_np)
+from ..ops.mct import (dc_level_shift, dc_level_shift_np,
+                       inv_dc_level_shift, inv_dc_level_shift_np,
+                       mct_matrix_forward, rct_forward, rct_forward_np,
+                       rct_inverse, rct_inverse_np)
 from ..t2.packets import (BlockState, PrecinctState, decode_packet,
                           decode_packet_split, encode_packet,
                           progression_order)
@@ -1205,8 +1205,11 @@ def tile_coeffs_device(comps: torch.Tensor, x0: int, y0: int, levels: int,
     the tile origin (x0, y0). Every op is elementwise across frames, so
     J2KEncoder (one frame) and the sharded encode (parallel/mesh.py, a
     block of frames) get the same coefficients. On a CUDA tensor the 5/3
-    is one launch of csrc/j2k_fwd_stage.cu, the DC shift (and the RCT of
-    ``colour``) fused into it when no Part-2 transform precedes it."""
+    is one launch of csrc/j2k_fwd_stage.cu and the 9/7 one launch of
+    csrc/j2k97_fwd_stage.cu, the DC shift (and the RCT or ICT of
+    ``colour``) fused into it when no Part-2 transform precedes it; after
+    a Part-2 transform the 9/7 stage takes its float32 output (and runs
+    the ICT of ``colour`` on it)."""
     def matrix_forward(x, matrix, offsets):
         # the component axis first, as mct_matrix_forward takes it;
         # offsets subtract before the matrix
@@ -1217,9 +1220,10 @@ def tile_coeffs_device(comps: torch.Tensor, x0: int, y0: int, levels: int,
 
     ncomp = comps.shape[1]
     colour = use_mct and ncomp == 3 and mct_matrix is None
-    if lossless and not mct_bindings and mct_matrix is None:
-        return fwd_stage(comps, 0 if signed else 1 << (bit_depth - 1),
-                         levels, x0, y0, mct=colour)
+    if not mct_bindings and mct_matrix is None:
+        stage = fwd_stage if lossless else fwd97_stage
+        return stage(comps, 0 if signed else 1 << (bit_depth - 1), levels,
+                     x0, y0, mct=colour)
     comps = dc_level_shift(comps.to(torch.int32), bit_depth, signed)
     if mct_bindings:
         for b in mct_bindings:
@@ -1238,10 +1242,8 @@ def tile_coeffs_device(comps: torch.Tensor, x0: int, y0: int, levels: int,
             comps = torch.stack(rct_forward(comps[:, 0], comps[:, 1],
                                             comps[:, 2]), dim=1)
         return fwd_stage(comps, 0, levels, x0, y0)
-    if colour:
-        comps = torch.stack(ict_forward(comps[:, 0], comps[:, 1],
-                                        comps[:, 2]), dim=1)
-    return fwd97_multilevel(comps, levels, x0=x0, y0=y0)
+    return fwd97_stage(comps.to(torch.float32), 0, levels, x0, y0,
+                       mct=colour)
 
 
 def quantize_packed(fcoeffs: np.ndarray, rect, levels: int,
@@ -2108,17 +2110,18 @@ class J2KDecoder:
                     rec = np.stack([r_, g_, b_]
                                    + [rec[i] for i in range(3, ncomp)])
                 rec = np.round(rec).astype(np.int32)
+            elif mct_bindings_inv:
+                rec = inv97_stage(_to_device(fpacked, self.device),
+                                  eff_levels, etx0, ety0, epilogue="coeffs")
+                rec = round_to_int32_sat(_apply_mct_bindings_inverse(
+                    rec, mct_bindings_inv))
             else:
-                rec = inv97_multilevel(_to_device(fpacked, self.device),
-                                       eff_levels, x0=etx0, y0=ety0)
-                if mct_bindings_inv:
-                    rec = _apply_mct_bindings_inverse(rec,
-                                                      mct_bindings_inv)
-                elif cod.mct == 1 and ncomp >= 3:
-                    r_, g_, b_ = ict_inverse(rec[0], rec[1], rec[2])
-                    rec = torch.stack([r_, g_, b_]
-                                      + [rec[i] for i in range(3, ncomp)])
-                rec = round_to_int32_sat(rec)
+                # one stage launch: 9/7, inverse ICT and round (signed:
+                # the unshift follows below)
+                rec = inv97_stage(_to_device(fpacked[None], self.device),
+                                  eff_levels, etx0, ety0, signed=True,
+                                  mct=cod.mct == 1,
+                                  epilogue="pixels")[0]
         else:
             # COC-heterogeneous styles and/or XRsiz/YRsiz-subsampled
             # grids: per-component inverse transforms on each component's
@@ -2153,9 +2156,9 @@ class J2KDecoder:
                         pk, (ctx0, cty0, ctx1, cty1), lv_c,
                         J2KEncoder._band_deltas(qcds[c], cod_c.num_levels,
                                                 depth))
-                    rc = round_to_int32_sat(inv97_multilevel(
-                        _to_device(fp[None], self.device), lv_c,
-                        x0=ctx0, y0=cty0)[0]).cpu().numpy()
+                    rc = inv97_stage(_to_device(fp[None], self.device),
+                                     lv_c, ctx0, cty0, signed=True,
+                                     epilogue="pixels")[0].cpu().numpy()
                 if (cth, ctw) != (th, tw):
                     up = np.asarray(rc)
                     ry = -(-th // max(cth, 1))

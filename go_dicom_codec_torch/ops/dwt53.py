@@ -269,7 +269,12 @@ def fwd_schedule(width: int, height: int, levels: int, x0: int = 0,
     level's w×h input lies in a plane's scratch; out_off is where its LL
     goes there, -1 for the output (the last level).
     """
-    wins = _stage_windows(width, height, levels, x0, y0)
+    return fwd_table(_stage_windows(width, height, levels, x0, y0))
+
+
+def fwd_table(wins):
+    """A forward stage's (tile, scratch words a plane, rows) for its level
+    windows ``wins``, finest first (``fwd_schedule``; the 9/7's too)."""
     outs, words = _scratch([_ll_size(*win) for win in wins[:-1]])
     rows = []
     for i, (w, h, lx0, ly0) in enumerate(wins):
@@ -285,7 +290,14 @@ def _inv_schedule(width: int, height: int, levels: int, x0: int, y0: int,
     """``inv_schedule`` with a head of windows of at most ``head_samples``
     samples and, unless ``head_side`` is None, sides of at most
     ``head_side`` samples."""
-    wins = _stage_windows(width, height, levels, x0, y0)[::-1]
+    return inv_table(_stage_windows(width, height, levels, x0, y0),
+                     head_samples, head_side)
+
+
+def inv_table(wins, head_samples: int, head_side):
+    """An inverse stage's (tile, scratch words a plane, rows) for its level
+    windows ``wins``, finest first (``_inv_schedule``; the 9/7's too)."""
+    wins = wins[::-1]
     # coarsest first; a level's reconstruction is the next one's LL: the
     # last-but-one is the largest, so the areas are handed out from the
     # finest level up

@@ -1,19 +1,35 @@
 """Irreversible 9/7 CDF lifting DWT (ISO/IEC 15444-1 Annex F), float32.
 
 Port of ``go_dicom_codec_tpu/ops/dwt97.py``: α/β/γ/δ lifting with edge
-clamps, K/invK normalization, vertical-first 2D, parity-aware windows, in
-plain torch on the tensor's device. The inverse is the exact mirror (low×K,
-high×1/K, then the negated lifting steps). The multilevel functions return
-a new tensor and leave their input as it was.
+clamps, K/invK normalization, vertical-first 2D, parity-aware windows. The
+inverse is the exact mirror (low×K, high×1/K, then the negated lifting
+steps). The multilevel functions return a new tensor and leave their
+input as it was. Two lanes:
 
-No hand-written kernel yet: the reference computes the 9/7 in jnp, not in
-Pallas.
+- the plain lane (``fwd97_1d`` … ``inv97_2d``,
+  ``*_multilevel_plain``): torch functions with the reference's float32
+  ops in the reference's order, on any device;
+- the kernel lane: for a CUDA tensor the whole forward transform is one
+  launch of ``csrc/j2k97_fwd_stage.cu`` and the whole inverse one launch
+  of ``csrc/j2k97_inv_stage.cu`` (``fwd97_schedule`` and
+  ``inv97_schedule`` are their level tables, built as the 5/3 stages'
+  are, ``ops/dwt53.py``), bit-exact against the plain lane.
+
+``fwd97_multilevel``/``inv97_multilevel`` pick the kernel lane for a CUDA
+tensor and the plain lane for a CPU tensor; any other device raises. The
+codecs call ``ops/j2k97_fwd_stage.fwd97_stage`` and
+``ops/j2k97_inv_stage.inv97_stage``, which fuse the DC shift, the ICT and
+the decode's round, unshift and clip into the same launches.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from .. import _kernels
+from . import dwt53
 from .dwt53 import _edge_left, _edge_right, _level_windows
 
 ALPHA = -1.586134342
@@ -120,16 +136,91 @@ def _multilevel(x: torch.Tensor, levels: int, x0: int, y0: int,
     return x
 
 
+def fwd97_multilevel_plain(x: torch.Tensor, levels: int, x0: int = 0,
+                           y0: int = 0) -> torch.Tensor:
+    """The plain lane on any device: the kernel lane's reference."""
+    return _multilevel(x, levels, x0, y0, fwd97_2d, inverse=False)
+
+
+def inv97_multilevel_plain(x: torch.Tensor, levels: int, x0: int = 0,
+                           y0: int = 0) -> torch.Tensor:
+    """The plain lane on any device: the kernel lane's reference."""
+    return _multilevel(x, levels, x0, y0, inv97_2d, inverse=True)
+
+
+# ---- the 9/7 stages' level tables ---------------------------------------------
+
+def _stage_windows(width: int, height: int, levels: int, x0: int, y0: int):
+    """The level windows of a 9/7 stage, finest first, less every 1×1
+    window: the 9/7 leaves an axis of one sample as it is, at either
+    parity (``fwd97_2d``, ``inv97_2d``), so such a window changes nothing
+    (the 5/3 keeps those at odd parity: its ×2 rule)."""
+    return [win for win in _level_windows(width, height, levels, x0, y0)
+            if win[:2] != (1, 1)]
+
+
+@functools.lru_cache(maxsize=256)
+def fwd97_schedule(width: int, height: int, levels: int, x0: int = 0,
+                   y0: int = 0):
+    """The forward 9/7 of [H, W] planes as csrc/j2k97_fwd_stage.cu runs it:
+    (tile, scratch words a plane, rows), one row a level, finest first, as
+    ``dwt53.fwd_schedule`` (the same tiles, kinds and scratch areas)."""
+    return dwt53.fwd_table(_stage_windows(width, height, levels, x0, y0))
+
+
+@functools.lru_cache(maxsize=256)
+def inv97_schedule(width: int, height: int, levels: int, x0: int = 0,
+                   y0: int = 0):
+    """The inverse 9/7 of [H, W] planes as csrc/j2k97_inv_stage.cu runs it:
+    (tile, scratch words a plane, rows), one row a level, coarsest first,
+    as ``dwt53.inv_schedule`` (the same head, grid rows and scratch)."""
+    return dwt53.inv_table(_stage_windows(width, height, levels, x0, y0),
+                           dwt53._HEAD_SAMPLES, dwt53._HEAD_SIDE)
+
+
+# ---- multilevel ---------------------------------------------------------------
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type in ("cuda", "cpu"):
+        return x.device.type == "cuda"
+    raise ValueError(f"9/7 DWT: no lane for device {x.device}")
+
+
+def _fwd97_kernel(x: torch.Tensor, levels: int, x0: int,
+                  y0: int) -> torch.Tensor:
+    """One launch of the 9/7 forward stage, shift 0 and no ICT (a type
+    the stage does not read is cast to float32, as the plain lane)."""
+    from .j2k97_fwd_stage import _fwd97_stage_kernel
+
+    if x.dtype not in _kernels.FWD97_STAGE_DTYPES:
+        x = x.to(torch.float32)
+    return _fwd97_stage_kernel(x, 0, levels, x0, y0)
+
+
+def _inv97_kernel(x: torch.Tensor, levels: int, x0: int,
+                  y0: int) -> torch.Tensor:
+    """One launch of the 9/7 inverse stage's "coeffs" form."""
+    from .j2k97_inv_stage import _inv97_stage_kernel
+
+    return _inv97_stage_kernel(x, levels, x0, y0, epilogue="coeffs")
+
+
 def fwd97_multilevel(x: torch.Tensor, levels: int, x0: int = 0,
                      y0: int = 0) -> torch.Tensor:
-    """Multilevel packed decomposition of [..., H, W], finest level first."""
-    return _multilevel(x, levels, x0, y0, fwd97_2d, inverse=False)
+    """Multilevel packed decomposition of [..., H, W] into a new float32
+    tensor, finest level first. A CUDA tensor takes one launch of
+    csrc/j2k97_fwd_stage.cu, or raises; a CPU tensor the plain lane."""
+    return (_fwd97_kernel if _on_cuda(x) else fwd97_multilevel_plain)(
+        x, levels, x0, y0)
 
 
 def inv97_multilevel(x: torch.Tensor, levels: int, x0: int = 0,
                      y0: int = 0) -> torch.Tensor:
-    """Multilevel packed reconstruction, coarsest level first."""
-    return _multilevel(x, levels, x0, y0, inv97_2d, inverse=True)
+    """Multilevel packed reconstruction into a new float32 tensor,
+    coarsest level first. A CUDA tensor takes one launch of
+    csrc/j2k97_inv_stage.cu, or raises; a CPU tensor the plain lane."""
+    return (_inv97_kernel if _on_cuda(x) else inv97_multilevel_plain)(
+        x, levels, x0, y0)
 
 
 # OpenJPEG 9/7 per-band L2 norms, used for step-size derivation.

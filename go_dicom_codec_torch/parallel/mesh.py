@@ -272,8 +272,8 @@ def sharded_tile_coeffs(frames, rects, nlv, bit_depth, signed, use_mct,
     the integer (lossless, no float MCT) ones to every lane, the 9/7 and
     Part-2 float ones to the port's scalar device lane (the reference's
     jitted programs may differ from both by an ulp, see its
-    sharded_tile_coeffs). On a CUDA device the reversible transform of a
-    tile is one launch of the fused forward stage."""
+    sharded_tile_coeffs). On a CUDA device the transform of a tile is one
+    launch of the fused forward stage, the 5/3's or the 9/7's."""
     from ..codecs.jpeg2000 import tile_coeffs_device
 
     frames = _compact(np.asarray(frames))
@@ -291,13 +291,14 @@ def sharded_tile_coeffs(frames, rects, nlv, bit_depth, signed, use_mct,
 def _inverse_stage(transform: int, levels: int, x0: int, y0: int, bits: int,
                    signed: bool, mct: bool, mct_inv=(), narrow=True):
     """The pipelined decode's device stage of one tile(-component):
-    inverse 5/3 (one launch of the fused inverse stage on a CUDA device
-    unless Part-2 matrices follow it) or 9/7, inverse RCT/ICT or the Part-2
-    inverse matrices, DC unshift; with ``narrow`` (samples of 16 bits or
-    fewer) clipped to the declared range and read back as 16-bit. The clip
-    is the identity for a full reversible decode without Part-2 matrices
-    and the pipeline's policy for a lossy one; a caller whose reversible
-    samples may leave the range passes ``narrow=False``."""
+    inverse 5/3 or 9/7, inverse RCT/ICT or the Part-2 inverse matrices, DC
+    unshift (one launch of the fused inverse stage, the 5/3's or the 9/7's,
+    on a CUDA device unless Part-2 matrices follow it); with ``narrow``
+    (samples of 16 bits or fewer) clipped to the declared range and read
+    back as 16-bit. The clip is the identity for a full reversible decode
+    without Part-2 matrices and the pipeline's policy for a lossy one; a
+    caller whose reversible samples may leave the range passes
+    ``narrow=False``."""
     from ..pipeline import (_j2k_decode_device_stage,
                             _j2k_decode_device_stage_97)
 

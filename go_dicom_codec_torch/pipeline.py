@@ -9,8 +9,10 @@ Port of ``go_dicom_codec_tpu/pipeline.py``:
   Every stage takes tensors on the device it should run on; on CUDA
   tensors each encode stage is one launch of the fused forward stage
   (ops/j2k_fwd_stage.py, the DC shift and the RCT of RGB frames fused into
-  it), and the reversible decode stage one launch of the fused inverse
-  stage (ops/j2k_inv_stage.py);
+  it), the reversible decode stage one launch of the fused inverse stage
+  (ops/j2k_inv_stage.py) and the irreversible one one launch of the 9/7
+  inverse stage (ops/j2k97_inv_stage.py, the inverse ICT, round, unshift
+  and clip fused into it);
 - the measured transfer policy that picks the transform engine;
 - the double-buffered ``encode_frames_pipelined`` and
   ``decode_frames_pipelined``: the device transforms chunk k+1 while the
@@ -36,8 +38,9 @@ import torch
 from .ops.convert import round_to_int32_sat
 from .ops.dwt53 import fwd53_multilevel_, inv53_multilevel_
 from .ops.dwt97 import inv97_multilevel
-from .ops.mct import (ict_inverse, ict_inverse_np, inv_dc_level_shift,
-                      rct_forward_np, rct_inverse_np)
+from .ops.mct import (ict_inverse_np, inv_dc_level_shift, rct_forward_np,
+                      rct_inverse_np)
+from .ops.j2k97_inv_stage import inv97_stage
 from .ops.j2k_fwd_stage import fwd_stage
 from .ops.j2k_inv_stage import inv_stage, narrow_pixels
 
@@ -155,16 +158,17 @@ def _j2k_decode_device_stage_97(fbatch: torch.Tensor, levels: int, x0: int,
 
     With ``narrow`` the samples are clipped to the declared range before
     the 16-bit cast: lossy reconstructions overshoot it by a few codes,
-    and an unclipped -1 would wrap to 65535.
+    and an unclipped -1 would wrap to 65535. On a CUDA tensor the whole
+    stage is one launch of csrc/j2k97_inv_stage.cu. With Part-2 inverse
+    matrices (``mct_inv``) they replace the inverse ICT before the round;
+    the 9/7 is then the stage's ``coeffs`` launch.
     """
-    rec = inv97_multilevel(fbatch, levels, x0=x0, y0=y0)
-    if mct_inv:
-        rec = _mct_inverse(rec, mct_inv)
-    elif mct and rec.shape[1] >= 3:
-        rgb = torch.stack(ict_inverse(rec[:, 0], rec[:, 1], rec[:, 2]),
-                          dim=1)
-        rec = torch.cat([rgb, rec[:, 3:]], dim=1)
-    px = inv_dc_level_shift(round_to_int32_sat(rec), bits, signed)
+    if not mct_inv:
+        return inv97_stage(fbatch, levels, x0, y0, bits, signed, mct,
+                           "narrow" if narrow else "pixels")
+    rec = inv97_stage(fbatch, levels, x0, y0, epilogue="coeffs")
+    px = inv_dc_level_shift(round_to_int32_sat(_mct_inverse(rec, mct_inv)),
+                            bits, signed)
     return narrow_pixels(px, bits, signed) if narrow else px
 
 

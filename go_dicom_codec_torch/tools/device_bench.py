@@ -24,6 +24,16 @@ of ``bench.py:47-98``. Rows:
     pipelined encode's chunk);
   - ``idct8x8_dequant``: its inverse, int32 zigzag coefficients → dequant +
     islow IDCT + shift + clamp, uint16 samples (the .51 decode);
+  - ``j2k97_fwd_stage``: the lossy encode's device stage, 12-bit uint16
+    frames → DC shift, float32 and 5-level 9/7 (one launch of the 9/7
+    forward stage) → float32 coefficients;
+  - ``j2k97_fwd_stage_rgb``: the same of 8-bit uint8 [B, 3, H, W] frames,
+    the ICT fused into the stage;
+  - ``j2k97_inv_stage``: the lossy decode's device stage, float32
+    coefficients of 12-bit frames → inverse 9/7, round, unshift, clip →
+    uint16 (one launch of the 9/7 inverse stage);
+  - ``j2k97_inv_stage_rgb``: the same of 8-bit [B, 3, H, W] frames, the
+    inverse ICT fused into the stage;
   - ``dwt97_deadzone_quant``: float32 samples → 5-level 9/7 → deadzone
     quant with one representative step (per-band slicing is a host-side
     gather; the arithmetic is the same), the lossy encode stage;
@@ -32,9 +42,10 @@ of ``bench.py:47-98``. Rows:
   - ``ict_forward``: the irreversible one of float32 (x, x+1, x+2);
   - ``xplus1_ceiling``: ``x + 1``, the memory-bound ceiling of this shape.
 
-The four 9/7 and color rows are the reference's arithmetic
-(``go_dicom_codec_tpu/tools/device_bench.py``) in plain torch: no
-hand-written kernel computes them. Each other row runs in the kernel lane
+The ``dwt97_deadzone_quant``, ``idwt97_dequant`` and color rows are the
+reference's arithmetic (``go_dicom_codec_tpu/tools/device_bench.py``) in
+plain torch only (the 9/7 through its plain lane); the two 9/7 stage rows
+are their kernel lane's counterparts. Each other row runs in the kernel lane
 (the hand-written kernels: one launch of the fused forward stage for every
 forward 5/3, of the fused inverse stage for every inverse) and the plain
 lane (the same step in plain torch), except the ceiling, which is plain
@@ -53,7 +64,8 @@ time torch.profiler records over ``iters`` calls), the device operations
 per call, its largest kernels and the device's idle share, 1 − device
 time / event time; the narrow decode stage (int16 coefficients → uint16
 pixels: the fused inverse stage and plain torch) of gray 12-bit and RGB
-8-bit frames; the stage and decode rows again at batches of
+8-bit frames; the four 9/7 stage rows with their bound; the stage, decode
+and 9/7 stage rows again at batches of
 ``DECODE_SMALL_BATCH`` (the decode pipeline's chunk) and
 ``STAGE_SMALL_BATCH`` (the encode pipeline's); the two islow rows with
 their bound (``jpeg_profile``); then the inverse stage's head budgets
@@ -107,7 +119,9 @@ from ..ops import dwt53
 from ..ops import j2k_inv_stage as istage
 from ..ops.j2k_fwd_stage import fwd_stage, fwd_stage_plain
 from ..codecs.j2k_quant import step_sizes_97
-from ..ops.dwt97 import fwd97_multilevel, inv97_multilevel
+from ..ops.dwt97 import fwd97_multilevel_plain, inv97_multilevel_plain
+from ..ops.j2k97_fwd_stage import fwd97_stage, fwd97_stage_plain
+from ..ops.j2k97_inv_stage import inv97_stage, inv97_stage_plain
 from ..ops.mct import dc_level_shift, ict_forward, rct_forward
 from ..pipeline import _pipeline_device_stage_rgb
 
@@ -156,14 +170,16 @@ def idwt53(q: torch.Tensor, lane: str = "kernel") -> torch.Tensor:
 
 
 def dwt97_deadzone_quant(x: torch.Tensor) -> torch.Tensor:
-    """float32 [B, H, W] → 5-level 9/7 → sign(c) · floor(|c| / step)."""
-    c = fwd97_multilevel(x, LEVELS)
+    """float32 [B, H, W] → 5-level 9/7 (the plain lane) → sign(c) ·
+    floor(|c| / step)."""
+    c = fwd97_multilevel_plain(x, LEVELS)
     return torch.sign(c) * torch.floor(c.abs() / STEP_97)
 
 
 def idwt97_dequant(q: torch.Tensor) -> torch.Tensor:
-    """Quantized float32 [B, H, W] → × step → 5-level inverse 9/7."""
-    return inv97_multilevel(q * STEP_97, LEVELS)
+    """Quantized float32 [B, H, W] → × step → 5-level inverse 9/7 (the
+    plain lane)."""
+    return inv97_multilevel_plain(q * STEP_97, LEVELS)
 
 
 def rct_step(x: torch.Tensor):
@@ -288,6 +304,37 @@ def _decode_steps(x: torch.Tensor) -> dict:
     return rows
 
 
+def _stage97_steps(x: torch.Tensor) -> dict:
+    """The 9/7 stage rows of gray 12-bit frames and RGB 8-bit frames (as
+    many as x holds), forward and decode: {row: ({lane: step}, bound
+    ms)}. The decode's input is the forward's coefficients, quantized and
+    dequantized with ``STEP_97``. Bound: uint16 (gray) or uint8 (RGB) in
+    and float32 out once; float32 in and uint16 out once."""
+    rng = np.random.default_rng(x.shape[0])
+    rgb = torch.as_tensor(rng.integers(0, 256, (x.shape[0], 3) + x.shape[1:])
+                          .astype(np.uint8), device=x.device)
+    rows = {}
+    for name, a, bits, mct in (("", x.to(torch.uint16)[:, None], 12, False),
+                               ("_rgb", rgb, 8, True)):
+        def lanes(a=a, bits=bits, mct=mct):
+            shift = 1 << (bits - 1)
+            c = fwd97_stage(a, shift, LEVELS, mct=mct)
+            f = torch.sign(c) * torch.floor(c.abs() / STEP_97) * STEP_97
+            dec = (LEVELS, 0, 0, bits, False, mct, "narrow")
+            return ({"kernel": lambda: fwd97_stage(a, shift, LEVELS,
+                                                   mct=mct),
+                     "plain": lambda: fwd97_stage_plain(a, shift, LEVELS,
+                                                        mct=mct)},
+                    {"kernel": lambda: inv97_stage(f, *dec),
+                     "plain": lambda: inv97_stage_plain(f, *dec)})
+        fwd, inv = lanes()
+        n = a.numel()
+        rows[f"j2k97_fwd_stage{name}"] = (
+            fwd, n * (a.element_size() + 4) / HBM_BYTES_PER_S * 1e3)
+        rows[f"j2k97_inv_stage{name}"] = (inv, n * 6 / HBM_BYTES_PER_S * 1e3)
+    return rows
+
+
 def _jpeg_steps(x: torch.Tensor) -> dict:
     """The two islow rows: {row: ({lane: step}, bound ms)}. Bound: uint16
     samples and int32 coefficients, each read or written once."""
@@ -347,7 +394,8 @@ def run_bench(batch: int = 32, height: int = 512, width: int = 512,
                      "runs": RUNS, "iters": iters, "gpu": card})
 
     stages = {name: lanes for name, (lanes, _) in
-              {**_stage_steps(x), **_jpeg_steps(x)}.items()}
+              {**_stage_steps(x), **_stage97_steps(x),
+               **_jpeg_steps(x)}.items()}
     for name, lanes in {**_steps(x, qt), **stages,
                         **_plain_steps(x)}.items():
         for lane, fn in lanes.items():  # the lanes of a row run back to back
@@ -389,6 +437,26 @@ def decode_profile(batch: int, height: int = 512, width: int = 512,
                   bound_ms=bound)
             for name, (lanes, bound) in _decode_steps(x).items()
             for lane, fn in lanes.items()]
+
+
+def stage97_profile(batch: int, height: int = 512, width: int = 512,
+                    iters: int = 10, seed: int = 0, card: str = "") -> list:
+    """Profile lines of the 9/7 stage rows in both lanes, with bounds; the
+    kernel lane checked against the plain lane first."""
+    x, _ = _inputs(batch, height, width, seed)
+    card = card or card_info()
+    lines = []
+    for name, (lanes, bound) in _stage97_steps(x).items():
+        got, want = lanes["kernel"](), lanes["plain"]()
+        if got.is_floating_point():  # bit for bit: -0.0 is not 0.0
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{name}: the stage differs from its plain "
+                               f"version")
+        lines += [_line(fn, iters, card, step=f"{name}/{lane}",
+                        batch=batch, bound_ms=bound)
+                  for lane, fn in lanes.items()]
+    return lines
 
 
 def jpeg_profile(batch: int, height: int = 512, width: int = 512,
@@ -479,6 +547,7 @@ def run_profile(batch: int = 32, height: int = 512, width: int = 512,
              for name, fn in fns.items()]
     steps += stage_profile(batch, height, width, iters, seed, card)
     steps += decode_profile(batch, height, width, iters, seed, card)
+    steps += stage97_profile(batch, height, width, iters, seed, card)
     steps += jpeg_profile(batch, height, width, iters, seed, card)
     return steps
 
@@ -681,6 +750,8 @@ def main(argv=None) -> int:
     for small in (DECODE_SMALL_BATCH, STAGE_SMALL_BATCH):
         steps += stage_profile(small, h, w, opts.iters, card=card)
         steps += decode_profile(small, h, w, opts.iters, card=card)
+    steps += stage97_profile(DECODE_SMALL_BATCH, h, w, opts.iters,
+                             card=card)
     for r in steps:
         print("PROFILE|" + json.dumps(r))
     for r in head_profile((DECODE_SMALL_BATCH, opts.batch), h, w, opts.iters,

@@ -166,14 +166,21 @@ def test_encode_matrix_sites_saturate(site):
 
 
 def test_decode_sites_use_the_helper():
-    """``codecs/jpeg2000.py`` ``J2KDecoder._decode_tile`` (the three
-    decode sites: Part-2 inverse of the 5/3, the 9/7 of a homogeneous
-    tile, the per-component 9/7), by reading its source: a direct call
-    needs a codestream whose coefficients dequantize out of range, which
-    no encoder writes. Each site rounds through ``round_to_int32_sat``,
-    the helper held against jnp above, and none casts with torch."""
+    """``codecs/jpeg2000.py`` ``J2KDecoder._decode_tile`` (the reference's
+    three decode sites: Part-2 inverse of the 5/3, the 9/7 of a
+    homogeneous tile, the per-component 9/7), by reading its source: a
+    direct call needs a codestream whose coefficients dequantize out of
+    range, which no encoder writes. The two Part-2 inverses (the 5/3's
+    and the 9/7's) round through ``round_to_int32_sat``, the helper held
+    against jnp above; the other two 9/7 sites round inside the 9/7
+    decode stage's "pixels" epilogue (the same helper in its plain
+    version, __float2int_rn in its kernel: tests/test_torch_j2k97_inv_
+    stage.py holds both against jnp on these inputs); none casts with
+    torch."""
     src = inspect.getsource(port_j2k.J2KDecoder._decode_tile)
-    assert src.count("round_to_int32_sat(") == 3
+    assert src.count("round_to_int32_sat(") == 2
+    assert src.count("inv97_stage(") == 3
+    assert src.count('epilogue="pixels")') == 2
     assert "torch.round" not in src and ".to(torch.int32)" not in src
     ref_src = inspect.getsource(ref_j2k.J2KDecoder._decode_tile)
     assert ref_src.count("jnp.round(") == 3
