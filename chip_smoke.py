@@ -32,8 +32,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    stages bit-exact (``compare_97``: the forward from uint16, uint8 and
    float32 samples, the decode in all three epilogues) at [32, 1, 512,
    512], [8, 3, 512, 512] with the ICT, [2, 1, 16, 65535], [2, 1, 65535,
-   16], one- and two-sample frames and an odd origin, then over the
-   launch models' covering at tiles of 64 and 8;
+   16], one- and two-sample frames, an odd origin and frames that cross
+   the strip pass's strip and segment seams at odd origins ([3, 1, 523,
+   517], [2, 3, 97, 1031]), then over the launch models' covering at the
+   card's strip geometry and at strips of 4 lanes and segments of 4 rows;
 4. drives the main path at full size: 32 gray 512×512 12-bit frames and 8
    RGB 512×512 8-bit frames through encode transform → narrow fetch →
    decode stage, each bit-exact back to its input; frames with a side of
@@ -252,7 +254,9 @@ LONG_SHAPES = (((1, 8, 58111), (0, 0)), ((1, 58111, 8), (0, 0)),
 NARROW_WIDTHS = (58111, 60000, 60001)
 # the 9/7 stages' checks against their plain versions, as (shape [F, C,
 # H, W], origin, levels): the main path's gray and RGB chunks, DICOM's
-# longest side both ways, one- and two-sample frames, an odd origin; the
+# longest side both ways, one- and two-sample frames, an odd origin, and
+# frames that cross the card's strip seams (120 and 116 columns) and
+# segment seams (64 rows and fewer) at every level, at an odd origin; the
 # ICT wherever C >= 3
 SHAPES_97 = (((B, 1, H, W), (0, 0), LEVELS),
              ((RGB_FRAMES, 3, H, W), (0, 0), LEVELS),
@@ -261,7 +265,9 @@ SHAPES_97 = (((B, 1, H, W), (0, 0), LEVELS),
              ((2, 1, 1, 1), (1, 1), 3), ((2, 3, 1, 2), (0, 0), 3),
              ((2, 1, 2, 1), (1, 0), 3), ((2, 3, 2, 2), (1, 1), 3),
              ((2, 1, 1, 65535), (1, 0), LEVELS),
-             ((2, 3, 61, 37), (1, 1), LEVELS))
+             ((2, 3, 61, 37), (1, 1), LEVELS),
+             ((3, 1, 523, 517), (1, 1), LEVELS),
+             ((2, 3, 97, 1031), (0, 0), LEVELS))
 # the 9/7 forward stage's sample types: (dtype, bits of content, shift)
 SAMPLES_97 = ((np.uint16, 12, 2048), (np.uint8, 8, 128),
               (np.float32, 12, 0))
@@ -486,10 +492,14 @@ def compare_inv_stage(coeffs: torch.Tensor) -> int:
     return err
 
 
-def stage_tables(tile: int, head: int) -> None:
+def stage_tables(tile: int, head: int, lanes: int = 32,
+                 seg: int = 64) -> None:
     """Set the fused stages' tile side and the inverse stage's head budget
-    (ops/dwt53.py); the level tables are built anew."""
+    (ops/dwt53.py), and the 9/7 stages' strip geometry: strips of at most
+    ``lanes`` lanes, segments of at most ``seg`` rows (ops/dwt97.py); the
+    level tables are built anew."""
     dwt53._TILE, dwt53._HEAD_SAMPLES = tile, head
+    dwt97._LANES, dwt97._SEG = lanes, seg
     for fn in (dwt53.fwd_schedule, dwt53.inv_schedule, dwt97.fwd97_schedule,
                dwt97.inv97_schedule):
         fn.cache_clear()
@@ -554,8 +564,9 @@ def compare_97(rng, dev) -> dict:
     bit: at SHAPES_97, the forward from each of SAMPLES_97 (the ICT where
     C >= 3), then the inverse of its coefficients in all three epilogues;
     then the covering of the launch models' tests (shapes 1×1 to 9×9 on
-    three diagonals and 61×37, every origin parity, levels 0-6) at tiles
-    of 64 and 8. Returns each kernel's max |d|."""
+    three diagonals and 61×37, every origin parity, levels 0-6) at the
+    card's strip geometry and at the tests' small one (strips of 4 lanes,
+    segments of 4 rows). Returns each kernel's max |d|."""
     errs = {"j2k97_fwd_stage": 0.0, "j2k97_inv_stage": 0.0}
     cases = 0
 
@@ -587,8 +598,8 @@ def compare_97(rng, dev) -> dict:
     covering += [((2, 3, 61, 37), (lv % 2, lv // 2 % 2), lv)
                  for lv in range(7)]
     try:
-        for tile in (64, 8):
-            stage_tables(tile, 64 * 64)
+        for lanes, seg in ((32, 64), (4, 4)):
+            stage_tables(64, 64 * 64, lanes, seg)
             for shape, origin, levels in covering:
                 one(shape, origin, levels, *SAMPLES_97[cases % 3])
     finally:
@@ -598,7 +609,8 @@ def compare_97(rng, dev) -> dict:
     print(f"9/7 stages == plain, bit for bit, on {cases} cases: "
           f"{[s for s, _, _ in SHAPES_97]} from uint16, uint8 and float32 "
           f"(ICT where C >= 3), the inverse in coeffs, pixels and narrow; "
-          f"the covering at tiles of 64 and 8")
+          f"the covering at the card's strip geometry and at strips of 4 "
+          f"lanes and segments of 4 rows")
     return errs
 
 
@@ -833,20 +845,24 @@ def time_97(dev, rng) -> dict:
     [B, 1, H, W] 12-bit uint16 frames to float32 coefficients (2 bytes in
     and 4 out a sample; ~7 float operations a sample and 1D pass of a
     level, 2 to widen), beside it [RGB_FRAMES, 3, H, W] uint8 with the ICT
-    (1 byte in, 4 out; the ICT 5 operations a sample) and [2, 1, 16, 65535]
-    (``long``); the decode stage of their coefficients, quantized with the
-    device bench's step and dequantized, to uint16 ("narrow": 4 bytes in
-    and 2 out a sample; ~10 operations a sample and pass, 4 in the
-    epilogue, the inverse ICT 5 more)."""
+    (1 byte in, 4 out; the ICT 5 operations a sample), [2, 1, 16, 65535]
+    (``long``) and [2, 1, 65535, 16] (``long_col``: 16-sample rows, a
+    strip's worth across); the decode stage of their coefficients,
+    quantized with the device bench's step and dequantized, to uint16
+    ("narrow": 4 bytes in and 2 out a sample; ~10 operations a sample and
+    pass, 4 in the epilogue, the inverse ICT 5 more)."""
     x16 = torch.as_tensor(rng.integers(0, 1 << 12, (B, 1, H, W))
                           .astype(np.uint16), device=dev)
     rgb = torch.as_tensor(rng.integers(0, 256, (RGB_FRAMES, 3, H, W))
                           .astype(np.uint8), device=dev)
     long16 = torch.as_tensor(rng.integers(0, 1 << 12, (2, 1, 16, 65535))
                              .astype(np.uint16), device=dev)
+    col16 = torch.as_tensor(rng.integers(0, 1 << 12, (2, 1, 65535, 16))
+                            .astype(np.uint16), device=dev)
     out = {"j2k97_fwd_stage": {}, "j2k97_inv_stage": {}}
     for key, x, bits, mct in (("gray", x16, 12, False), ("rgb", rgb, 8, True),
-                              ("long", long16, 12, False)):
+                              ("long", long16, 12, False),
+                              ("long_col", col16, 12, False)):
         shift, n = 1 << (bits - 1), x.numel()
         window = lifted(x.shape)
         fwd = lambda: fwd97_stage(x, shift, LEVELS, mct=mct)
@@ -943,7 +959,7 @@ def time_kernels(dev, rng, qt) -> dict:
                t["j2k_inv_stage"]["long"], t["j2k97_fwd_stage"],
                t["j2k97_inv_stage"],
                *(t[k][sub] for k in ("j2k97_fwd_stage", "j2k97_inv_stage")
-                 for sub in ("rgb", "long"))):
+                 for sub in ("rgb", "long", "long_col"))):
         check(tk["device_ms"] is None or tk["device_ops"] == 1,
               f"a fused stage call ran {tk['device_ops']} device operations")
     x = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W), dtype=np.int32),
@@ -2417,7 +2433,8 @@ def main() -> int:
                         "bound_ms": tk["bound_ms"],
                         "bound_by": tk["bound_by"], "library_ms": None})
         for extra in ("xplus1_ms", "xplus1_device_ms", "uint16_12bit",
-                      "per_frame", "rgb", "long", "plain_device_ops"):
+                      "per_frame", "rgb", "long", "long_col",
+                      "plain_device_ops"):
             if extra in tk:
                 kernels[-1][extra] = tk[extra]
         if name in ("j2k_fwd_stage", "j2k_inv_stage"):

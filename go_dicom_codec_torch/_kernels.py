@@ -121,14 +121,17 @@ def _load():
     lib.gdct_j2k_inv_stage.argtypes = [p, i, p, p, i, i, i, i, p, i, i, i, i,
                                        i, i, i, i, p]
     lib.gdct_j2k97_fwd_stage.argtypes = [p, i, p, p, i, i, i, i, i, i, p, i,
-                                         i, i, p]
+                                         i, p]
     lib.gdct_j2k97_inv_stage.argtypes = [p, p, p, i, i, i, i, p, i, i, i, i,
-                                         i, i, i, i, p]
+                                         i, i, i, p]
+    lib.gdct_j2k97_fwd_warps.argtypes = [i, i, p, p]
+    lib.gdct_j2k97_inv_warps.argtypes = [i, p, p]
     lib.gdct_jpeg_fdct_islow.argtypes = [p, i, p, p, ll, i, i, i, p]
     lib.gdct_jpeg_idct_islow.argtypes = [p, p, i, p, ll, i, i, i, i, p]
     for fn in (lib.gdct_fdct8x8_quant, lib.gdct_j2k_fwd_stage,
                lib.gdct_j2k_inv_stage, lib.gdct_j2k97_fwd_stage,
-               lib.gdct_j2k97_inv_stage, lib.gdct_jpeg_fdct_islow,
+               lib.gdct_j2k97_inv_stage, lib.gdct_j2k97_fwd_warps,
+               lib.gdct_j2k97_inv_warps, lib.gdct_jpeg_fdct_islow,
                lib.gdct_jpeg_idct_islow):
         fn.restype = ctypes.c_int
     lib.gdct_error_string.argtypes = [ctypes.c_int]
@@ -215,10 +218,10 @@ def _stage_plane(name: str, h: int, w: int, schedule, cb: int = 0):
     return table
 
 
-def _scratch(schedule, planes: int, like, dtype=torch.int32):
-    """The stage's scratch (int32 for the 5/3, float32 for the 9/7), P ×
-    the schedule's words a plane; None when the schedule needs none."""
-    words = schedule[1] * planes
+def _scratch(words: int, planes: int, like, dtype):
+    """A stage's scratch (int32 for the 5/3, float32 for the 9/7): P ×
+    its schedule's ``words`` a plane; None when the schedule needs none."""
+    words *= planes
     return (torch.empty(words, dtype=dtype, device=like.device)
             if words else None)
 
@@ -280,7 +283,7 @@ def j2k_fwd_stage(src: torch.Tensor, coef: torch.Tensor, schedule,
     if coef is not None and coef.data_ptr() == src.data_ptr():
         raise KernelLaunchError("j2k_fwd_stage: src is coef; the stage "
                                 "never writes its input")
-    scratch = _scratch(schedule, p, src)
+    scratch = _scratch(schedule[1], p, src, torch.int32)
     ptrs = [0 if t is None else t.data_ptr()
             for t in (coef, scratch, narrow, maxabs, cb_max, cb_bits)]
     lib = _load()
@@ -356,7 +359,7 @@ def j2k_inv_stage(src: torch.Tensor, out: torch.Tensor, schedule,
     if out.data_ptr() == src.data_ptr():
         raise KernelLaunchError("j2k_inv_stage: src is out; the stage "
                                 "never writes its input")
-    scratch = _scratch(schedule, p, src)
+    scratch = _scratch(schedule[1], p, src, torch.int32)
     dc = 0 if signed else 1 << (bits - 1)
     lib = _load()
     with torch.cuda.device(src.device):
@@ -377,12 +380,43 @@ FWD97_HALO, INV97_HALO = 4, 6
 # csrc/j2k97_fwd_stage.cu (float32: shifted already, shift 0)
 FWD97_STAGE_DTYPES = {torch.uint16: 0, torch.int16: 1, torch.int32: 2,
                       torch.uint8: 3, torch.float32: 4}
+STRIP_LANES = (4, 8, 16, 32)  # the lanes a strip of csrc/lifting97.cuh takes
+STRIP_PAIRS = 2  # its kPairs: pairs of columns a lane holds
 
 
-def stage97_smem_bytes(tile: int, halo: int, ict: bool) -> int:
-    """Shared memory of one block of a 9/7 stage: a buffer of the tile and
-    its halo, (tile + 2·halo)² float32 words, three with the ICT."""
-    return (3 if ict else 1) * (tile + 2 * halo) ** 2 * 4
+@functools.lru_cache(maxsize=256)
+def _stage97_table(name: str, schedule: tuple, halo: int):
+    """A 9/7 stage's level rows as the int32 array the kernel reads, once
+    checked as csrc/lifting97.cuh::read_schedule97 checks them: (scratch
+    words a plane, rows of (kind, w, h, even_x, even_y, in_off, out_off,
+    lanes, seg))."""
+    words, rows = schedule
+    if len(rows) > STAGE_MAX_ROWS:
+        raise KernelLaunchError(f"{name}: {len(rows)} levels")
+    for row in rows:
+        if len(row) != 9:
+            raise KernelLaunchError(f"{name}: a table row of {len(row)} "
+                                    f"columns")
+        lanes, seg = row[7], row[8]
+        if (lanes not in STRIP_LANES or 2 * STRIP_PAIRS * lanes <= 2 * halo
+                or seg < 2 or seg % 2):
+            raise KernelLaunchError(f"{name}: a level of strips of {lanes} "
+                                    f"lanes and segments of {seg} rows")
+    flat = [int(v) for row in rows for v in row]
+    if any(not -(1 << 31) <= v <= INT32_MAX for v in flat + [words]):
+        raise KernelLaunchError(f"{name}: a table entry exceeds int32")
+    return (ctypes.c_int * max(1, len(flat)))(*flat)
+
+
+def _stage97_plane(name: str, h: int, w: int, schedule, halo: int):
+    """``_stage97_table`` of a launch over [H, W] planes, refused where a
+    side passes ``STAGE_MAX_SIDE`` (the fold's period, an int in the
+    kernel). A level's strips and segments are fewer than its samples,
+    and item counts are long long in the kernel."""
+    if max(h, w) > STAGE_MAX_SIDE:
+        raise KernelLaunchError(f"{name}: a side of {max(h, w)} samples "
+                                f"exceeds {STAGE_MAX_SIDE}")
+    return _stage97_table(name, tuple(schedule), halo)
 
 
 def _planes97(name: str, src: torch.Tensor, out: torch.Tensor, comps: int,
@@ -403,6 +437,37 @@ def _planes97(name: str, src: torch.Tensor, out: torch.Tensor, comps: int,
                                 f"writes its input")
 
 
+@functools.lru_cache(maxsize=64)
+def _warps97(entry: str, device: int, *variant: int):
+    lib = _load()
+    grid, block = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*variant, ctypes.byref(grid),
+                                  ctypes.byref(block))
+    _check(lib, err, entry)
+    return grid.value, block.value
+
+
+def j2k97_fwd_warps(src: torch.Tensor, ict: bool = False):
+    """(grid warps, block warps) of the kernel that ``j2k97_fwd_stage``
+    launches for ``src`` (its dtype; with the ICT or without): the warps
+    that ``src``'s card holds at once, as the launch sizes its grid, and
+    the warps of one block. ``ops/dwt97.fwd97_schedule`` chooses its
+    segment heights for them."""
+    if src.dtype not in FWD97_STAGE_DTYPES:
+        raise KernelLaunchError(f"j2k97_fwd_stage: no route for {src.dtype}")
+    _require(src, src.dtype, "j2k97_fwd_stage src")
+    return _warps97("gdct_j2k97_fwd_warps", src.get_device(),
+                    FWD97_STAGE_DTYPES[src.dtype], int(ict))
+
+
+def j2k97_inv_warps(src: torch.Tensor, ict: bool = False):
+    """``j2k97_fwd_warps`` of the kernel that ``j2k97_inv_stage`` launches
+    with the inverse ICT or without, for ``ops/dwt97.inv97_schedule``."""
+    _require(src, torch.float32, "j2k97_inv_stage src")
+    return _warps97("gdct_j2k97_inv_warps", src.get_device(), int(ict))
+
+
 def j2k97_fwd_stage(src: torch.Tensor, out: torch.Tensor, schedule,
                     shift: int, comps: int = 1, mct: bool = False) -> None:
     """Launch the 9/7 forward stage once: samples ``src`` [P, H, W] (a
@@ -412,10 +477,10 @@ def j2k97_fwd_stage(src: torch.Tensor, out: torch.Tensor, schedule,
     frame of ``comps`` planes when ``mct`` and ``comps`` >= 3 → the levels
     of ``schedule`` → the float32 packed coefficients ``out`` [P, H, W].
 
-    ``schedule`` is ``ops/dwt97.py:fwd97_schedule``'s (tile, scratch words
-    a plane, rows); the levels pass their LL through a float32 scratch of
-    P × the schedule's words. The largest plane and the int32 checks are
-    the 5/3 stage's (``j2k_fwd_stage``, ``_stage_plane``).
+    ``schedule`` is ``ops/dwt97.py:fwd97_schedule``'s (scratch words a
+    plane, rows); the levels pass their LL through a float32 scratch of
+    P × the schedule's words. The largest plane is the 5/3 stage's
+    (``j2k_fwd_stage``), the table's checks ``_stage97_plane``'s.
     """
     if src.dtype not in FWD97_STAGE_DTYPES:
         raise KernelLaunchError(f"j2k97_fwd_stage: no route for {src.dtype}")
@@ -425,15 +490,15 @@ def j2k97_fwd_stage(src: torch.Tensor, out: torch.Tensor, schedule,
                                 "shift")
     _planes97("j2k97_fwd_stage", src, out, comps, torch.float32)
     p, h, w = src.shape
-    table = _stage_plane("j2k97_fwd_stage", h, w, schedule)
-    scratch = _scratch(schedule, p, src, torch.float32)
+    table = _stage97_plane("j2k97_fwd_stage", h, w, schedule, FWD97_HALO)
+    scratch = _scratch(schedule[0], p, src, torch.float32)
     lib = _load()
     with torch.cuda.device(src.device):
         err = lib.gdct_j2k97_fwd_stage(
             src.data_ptr(), FWD97_STAGE_DTYPES[src.dtype], out.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), p // comps, comps,
-            h, w, _int32(shift), int(bool(mct)), table, len(schedule[2]),
-            schedule[0], schedule[1], _stream(src))
+            h, w, _int32(shift), int(bool(mct)), table, len(schedule[1]),
+            schedule[0], _stream(src))
     launch_counts["j2k97_fwd_stage"] += 1
     _check(lib, err, "j2k97_fwd_stage")
 
@@ -446,15 +511,15 @@ def j2k97_inv_stage(src: torch.Tensor, out: torch.Tensor, schedule,
     → the epilogue into ``out`` [P, H, W]. The P planes are frames of
     ``comps`` components each.
 
-    ``schedule`` is ``ops/dwt97.py:inv97_schedule``'s (tile, scratch words
-    a plane, rows). Epilogue "coeffs" writes the float32 reconstruction;
+    ``schedule`` is ``ops/dwt97.py:inv97_schedule``'s (scratch words a
+    plane, rows). Epilogue "coeffs" writes the float32 reconstruction;
     "pixels" int32 samples and "narrow" 16-bit ones (uint16, or int16 when
     ``signed``, clipped to the ``bits``-bit range): the inverse ICT of
     components 0-2 when ``mct`` and ``comps`` >= 3, round half to even
     (saturating, NaN → 0), then + 2^(bits-1) unless ``signed``. The levels
     pass their reconstruction through a float32 scratch of P × the
-    schedule's words. The largest plane and the int32 checks are the 5/3
-    stage's (``j2k_inv_stage``, ``_stage_plane``).
+    schedule's words. The largest plane is the 5/3 stage's
+    (``j2k_inv_stage``), the table's checks ``_stage97_plane``'s.
     """
     _require(src, torch.float32, "j2k97_inv_stage src")
     if epilogue not in INV_STAGE_EPILOGUES:
@@ -471,15 +536,15 @@ def j2k97_inv_stage(src: torch.Tensor, out: torch.Tensor, schedule,
         want = torch.float32 if epilogue == "coeffs" else torch.int32
     _planes97("j2k97_inv_stage", src, out, comps, want)
     p, h, w = src.shape
-    table = _stage_plane("j2k97_inv_stage", h, w, schedule)
-    scratch = _scratch(schedule, p, src, torch.float32)
+    table = _stage97_plane("j2k97_inv_stage", h, w, schedule, INV97_HALO)
+    scratch = _scratch(schedule[0], p, src, torch.float32)
     dc = 0 if signed else 1 << (bits - 1)
     lib = _load()
     with torch.cuda.device(src.device):
         err = lib.gdct_j2k97_inv_stage(
             src.data_ptr(), out.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), p // comps, comps,
-            h, w, table, len(schedule[2]), schedule[0], schedule[1],
+            h, w, table, len(schedule[1]), schedule[0],
             INV_STAGE_EPILOGUES[epilogue], int(bool(mct)), _int32(dc), lo,
             hi, _stream(src))
     launch_counts["j2k97_inv_stage"] += 1

@@ -15,25 +15,36 @@
 // the next level (8/3 bytes a sample over all levels). Its time on an
 // H100 stands in PERF.md §6.
 //
-// Design: j2k_fwd_stage.cu's skeleton in float32 with lifting97.cuh's tile
-// pass (a halo of 4: the forward's four lifting steps): one persistent
-// cooperative launch over a host-built table of levels
-// (lifting.cuh::Row), finest first:
+// Design: j2k_fwd_stage.cu's skeleton in float32 with lifting97.cuh's
+// register-resident strip pass (a halo of 4: the forward's four lifting
+// steps): one persistent cooperative launch over a host-built table of
+// levels (Row97: each level's strip lanes and segment rows), finest
+// first:
 //
-// - grid rows: the level's (plane group, tile) items spread over the grid,
-//   then grid.sync(), since the next level reads what other blocks wrote;
-// - block rows: the coarse levels whose window fits one tile run in one
-//   block a plane group, one after another with only block barriers.
+// - grid rows: the level's work items (plane group, strip, segment) over
+//   the strips of every warp of the grid, then grid.sync(), since the
+//   next level reads what other warps wrote; inside a level the warps
+//   share nothing: no shared memory, no block barrier;
+// - block rows (the head): the coarse levels, at most 64 samples each
+//   way, run in one block a plane group, one after another with block
+//   barriers between them only.
+//
+// Both run one inlined copy of the level pass (fwd_level). A warp's strip
+// walks its segment's rows in pairs: it loads a low and a high row (32
+// lanes of 4 columns: 256 or 512 coalesced bytes a row), the column steps
+// fire in registers as the rows arrive (gdct97::Column), and each row
+// that comes out, scaled by 1/K or K, is lifted along x at once through
+// warp shuffles, scaled, and stored at its packed place: its HL, LH and
+// HH samples to the output, which they reach final, its LL to scratch
+// (two areas in turns), the last level's to the output.
 //
 // The first level reads the input in its own type: an integer sample is
 // widened, less the DC shift in wrapping int32 and rounded to float32
 // (__int2float_rn, as torch's and jnp's casts); a float32 sample (the
 // Part-2 path: shifted and matrixed already) is taken as it is. With mct a
-// frame's components 0-2 are one item of three buffers, and the ICT runs
+// frame's components 0-2 are one item of three planes, and the ICT runs
 // as they are loaded. A later level reads the LL that the level before
-// wrote to scratch (two areas in turns). Each level writes its HL, LH and
-// HH bands, which are final, to the output, its LL to scratch, the last
-// level's to the output. The input is never written: it must not be the
+// wrote to scratch. The input is never written: it must not be the
 // output.
 
 #include <cooperative_groups.h>
@@ -49,12 +60,14 @@ namespace cg = cooperative_groups;
 namespace {
 
 using gdct::kThreads;
-using gdct::Row;
-using gdct::Schedule;
 using gdct::wsub;
+using gdct97::Item;
+using gdct97::kCols;
+using gdct97::Lanes;
+using gdct97::Row97;
+using gdct97::Schedule97;
 
 constexpr int kHalo = 4;
-using Tile = gdct97::Tile<kHalo>;
 
 // A sample as the transform takes it: less `shift` in wrapping int32, then
 // float32; a float32 sample as it is.
@@ -67,129 +80,216 @@ __device__ __forceinline__ float widen(T v, int shift) {
   }
 }
 
-// A level's input: planes of a w×h window from `base`, `stride` words
-// apart, rows `pitch` words apart, widened (the first level's samples;
-// shift 0 and no ICT for the LL in scratch); with `ict` (three planes) the
-// planes are R, G, B and the buffers get Y, Cb, Cr.
+// The bits of a sample as a Raw word: an integer widened to int32, a
+// float32 as it is.
+template <typename T>
+__device__ __forceinline__ uint32_t to_raw(T v) {
+  if constexpr (std::is_same_v<T, float>) {
+    return __float_as_uint(v);
+  } else {
+    return static_cast<uint32_t>(static_cast<int>(v));
+  }
+}
+
+// A level's input for run_item: planes of a w×h window from `base`,
+// `stride` words apart, rows `pitch` words apart. The first level
+// (`typed`) reads the stage's samples, T, and widens them less `shift`;
+// with `ict` (three planes) they are R, G, B and the rows come out as Y,
+// Cb, Cr. A later level reads the float32 LL in scratch (`base` read as
+// floats).
 template <typename T>
 struct In {
-  const T* base;
+  using Raw = uint32_t;
+  const void* base;
   long long stride;
-  int pitch, w, h, shift;
-  bool ict;
+  int pitch, h, shift;
+  bool typed, ict;
 
   template <int kNb>
-  __device__ __forceinline__ void fetch(int y, int x, float* v) const {
-    const T* at = base +
-                  static_cast<long long>(gdct::fold(y, h)) * pitch +
-                  gdct::fold(x, w);
+  __device__ __forceinline__ void load(int y, const Item& it,
+                                       uint32_t (&raw)[kNb][kCols]) const {
+    const long long row = static_cast<long long>(gdct97::fold97(y, h)) * pitch;
+    if (typed) {
+      const T* at = static_cast<const T*>(base) + row;
 #pragma unroll
-    for (int k = 0; k < kNb; ++k) v[k] = widen(at[k * stride], shift);
-    if constexpr (kNb == 3) {
-      if (ict) {
-        const float r = v[0], g = v[1], b = v[2];
-        v[0] = gdct97::dot3(gdct97::kYr, r, gdct97::kYg, g, gdct97::kYb, b);
-        v[1] =
-            gdct97::dot3(gdct97::kCbr, r, gdct97::kCbg, g, gdct97::kCbb, b);
-        v[2] =
-            gdct97::dot3(gdct97::kCrr, r, gdct97::kCrg, g, gdct97::kCrb, b);
+      for (int k = 0; k < kNb; ++k) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          raw[k][c] = to_raw(at[k * stride + it.fx[c]]);
+        }
+      }
+    } else {
+      const uint32_t* at = static_cast<const uint32_t*>(base) + row;
+#pragma unroll
+      for (int k = 0; k < kNb; ++k) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) raw[k][c] = at[k * stride + it.fx[c]];
+      }
+    }
+  }
+
+  template <int kNb>
+  __device__ __forceinline__ void finish(const uint32_t (&raw)[kNb][kCols],
+                                         float (&v)[kNb][kCols], int) const {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+#pragma unroll
+      for (int k = 0; k < kNb; ++k) {
+        if constexpr (std::is_same_v<T, float>) {
+          v[k][c] = __uint_as_float(raw[k][c]);
+        } else {
+          v[k][c] = typed ? widen(static_cast<int>(raw[k][c]), shift)
+                          : __uint_as_float(raw[k][c]);
+        }
+      }
+      if constexpr (kNb == 3) {
+        if (ict) {
+          const float r = v[0][c], g = v[1][c], b = v[2][c];
+          v[0][c] = gdct97::dot3(gdct97::kYr, r, gdct97::kYg, g,
+                                 gdct97::kYb, b);
+          v[1][c] = gdct97::dot3(gdct97::kCbr, r, gdct97::kCbg, g,
+                                 gdct97::kCbb, b);
+          v[2][c] = gdct97::dot3(gdct97::kCrr, r, gdct97::kCrg, g,
+                                 gdct97::kCrb, b);
+        }
       }
     }
   }
 };
 
-// One tile of level `r` for the kNb planes from plane0: load the tile and
-// its halo, lift, store each sample at its packed place: the LL to scratch
-// (r.out_off >= 0) or the output, the high bands to the output. Thread i
-// stores column i % 64 of the tile's rows i / 64, i / 64 + 4, ...
-template <int kNb, typename Load>
-__device__ void fwd_tile(const Load& load, const Row& r, int tsize,
-                         long long tile, long long plane0, float* out,
-                         float* scratch, int scratch_words,
-                         long long plane_size, int width, float* buf) {
-  const int tiles_x = (r.w + tsize - 1) / tsize;
-  const Tile t(tsize, r.w, r.h, static_cast<int>(tile / tiles_x),
-               static_cast<int>(tile % tiles_x));
-  const int lo_x = r.even_x ? 0 : 1, lo_y = r.even_y ? 0 : 1;
-  gdct97::load_tile<kHalo, kNb>(load, t, buf);
-  gdct97::fwd_lift<kHalo, kNb>(buf, t, lo_x, lo_y, r.w, r.h);
+// A level's rows as they come out of the column steps: scaled along y,
+// lifted and scaled along x, stored at their packed places (the LL to
+// scratch where out_off >= 0, the rest to the output). The lane's packed
+// columns px[c], whether they are stored and whether they are low, are
+// the item's.
+struct Out {
+  const Row97& r;
+  const Lanes& ln;
+  float* out;      // the group's first output plane
+  float* scratch;  // the level's LL area of the group's first plane
+  long long plane_size, scratch_words;
+  int width, snx, sny, px[kCols];
+  bool keep[kCols], ll[kCols];
+  const Item& it;
 
-  const int snx = (r.w + 1 - lo_x) >> 1, sny = (r.h + 1 - lo_y) >> 1;
-  const int nlx = (t.tex + 1 - lo_x) >> 1, nly = (t.tey + 1 - lo_y) >> 1;
-  const int c = threadIdx.x & 63;
-  if (c < t.tex) {
-    // the tile's columns in packed order: its lows, then its highs
-    const bool low_x = c < nlx;
-    const int ox = low_x ? c : c - nlx;
-    const int bx = (low_x ? lo_x : 1 - lo_x) * t.hx + kHalo / 2 + ox;
-    const int px = (low_x ? 0 : snx) + (t.tx0 >> 1) + ox;
-    for (int oy = threadIdx.x >> 6; oy < t.tey; oy += 4) {
-      const bool low_y = oy < nly;
-      const int o = low_y ? oy : oy - nly;
-      const int by = (low_y ? lo_y : 1 - lo_y) + kHalo + 2 * o;
-      const int py = (low_y ? 0 : sny) + (t.ty0 >> 1) + o;
+  __device__ __forceinline__ Out(const Row97& r_, const Item& it_,
+                                 const Lanes& ln_, float* out_,
+                                 float* scratch_, long long plane_size_,
+                                 long long scratch_words_, int width_)
+      : r(r_),
+        ln(ln_),
+        out(out_),
+        scratch(scratch_),
+        plane_size(plane_size_),
+        scratch_words(scratch_words_),
+        width(width_),
+        snx((r_.w + r_.even_x) >> 1),
+        sny((r_.h + r_.even_y) >> 1),
+        it(it_) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      px[c] = gdct::interleaved_to_packed(it.x + c, snx, 1 - r.even_x);
+      keep[c] = it.stored(c);
+      ll[c] = px[c] < snx && r.out_off >= 0;
+    }
+  }
+
+  template <int kNb>
+  __device__ __forceinline__ void operator()(int y,
+                                             float (&v)[kNb][kCols],
+                                             int kind) const {
+    if (kind != gdct97::kOnlyRow) {
+      const float f = kind == gdct97::kLowRow ? gdct97::kInvK : gdct97::kK;
 #pragma unroll
       for (int k = 0; k < kNb; ++k) {
-        const float v = buf[k * t.words + by * t.pitch + bx];
-        if (low_y && low_x && r.out_off >= 0) {
-          scratch[(plane0 + k) * scratch_words + r.out_off +
-                  static_cast<long long>(py) * snx + px] = v;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) v[k][c] = __fmul_rn(v[k][c], f);
+      }
+    }
+    if (r.w > 1) {
+      gdct97::lift_x<false, kNb>(ln, v);
+#pragma unroll
+      for (int k = 0; k < kNb; ++k) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          v[k][c] = __fmul_rn(v[k][c], c % 2 ? gdct97::kK : gdct97::kInvK);
+        }
+      }
+    }
+    if (!it.row_out(y)) return;
+    const int py = gdct::interleaved_to_packed(y, sny, 1 - r.even_y);
+    float* orow = out + static_cast<long long>(py) * width;
+    float* srow = scratch + static_cast<long long>(py) * snx;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      if (!keep[c]) continue;
+      const bool to_scratch = ll[c] && py < sny;
+#pragma unroll
+      for (int k = 0; k < kNb; ++k) {
+        if (to_scratch) {
+          srow[k * scratch_words + px[c]] = v[k][c];
         } else {
-          out[(plane0 + k) * plane_size +
-              static_cast<long long>(py) * width + px] = v;
+          orow[k * plane_size + px[c]] = v[k][c];
         }
       }
     }
   }
-  __syncthreads();  // the next tile loads into buf again
+};
+
+// Work item `item` of level `r` for the kNb planes from plane0.
+template <int kNb, typename T>
+__device__ __forceinline__ void fwd_item(const Row97& r, long long item,
+                                         bool valid, const Lanes& ln,
+                                         const In<T>& in, long long plane0,
+                                         float* out, float* scratch,
+                                         long long scratch_words,
+                                         long long plane_size, int width) {
+  const Item it(r, gdct97::Items(r, kHalo), item, valid, ln, kHalo);
+  const Out emit(r, it, ln, out + plane0 * plane_size,
+                 r.out_off < 0 ? nullptr
+                               : scratch + plane0 * scratch_words + r.out_off,
+                 plane_size, scratch_words, width);
+  gdct97::run_item<false, kNb>(r, it, in, emit, kHalo);
 }
 
-// fwd_tile for a group of nb planes. kIct: the launch has groups of three
-// planes (the gray kernel carries no code for them).
-template <bool kIct, typename Load, typename... Args>
-__device__ __forceinline__ void fwd_tile_nb(const Load& load, int nb,
-                                            Args&... args) {
-  if constexpr (kIct) {
-    if (nb == 3) {
-      fwd_tile<3>(load, args...);
-      return;
-    }
-  }
-  fwd_tile<1>(load, args...);
-}
-
-// Every tile of level `ri` for one plane group, or tile `tile` alone.
+// Level `r` for the plane groups [g_lo, g_hi), its items over `warps`
+// warps from `warp`; the head's rows and the grid rows call it from one
+// place, so the kernel holds one copy of the strip pass.
 template <bool kIct, typename T>
-__device__ void fwd_level(const Schedule& s, int ri, long long tile,
-                          gdct::Group g, bool ict, const T* src, int shift,
-                          float* out, float* scratch, long long plane_size,
-                          int width, float* buf) {
-  const Row& r = s.row[ri];
-  const int tiles = ((r.w + s.tile - 1) / s.tile) *
-                    ((r.h + s.tile - 1) / s.tile);
-  const long long first = tile < 0 ? 0 : tile;
-  const long long end = tile < 0 ? tiles : tile + 1;
-  for (long long t = first; t < end; ++t) {
-    if (r.in_off < 0) {
-      const In<T> load{src + g.plane0 * plane_size, plane_size, width, r.w,
-                       r.h, shift, ict};
-      fwd_tile_nb<kIct>(load, g.nb, r, s.tile, t, g.plane0, out, scratch,
-                        s.scratch, plane_size, width, buf);
-    } else {
-      const In<float> load{scratch + g.plane0 * s.scratch + r.in_off,
-                           s.scratch, r.w, r.w, r.h, 0, false};
-      fwd_tile_nb<kIct>(load, g.nb, r, s.tile, t, g.plane0, out, scratch,
-                        s.scratch, plane_size, width, buf);
+__device__ __forceinline__ void fwd_level(Row97 r, long long scratch_words,
+                                       long long g_lo, long long g_hi,
+                                       long long warp, long long warps,
+                                       bool g3, int n_comps, const T* src,
+                                       int shift, float* out, float* scratch,
+                                       long long plane_size, int width) {
+  const Lanes ln(r.lanes);
+  const long long per = gdct97::Items(r, kHalo).count();
+  gdct97::for_items(g_hi - g_lo, per, warp, warps, ln,
+                    [&](long long g, long long item, bool valid) {
+    const gdct::Group grp = gdct::group(g_lo + g, n_comps, g3);
+    const bool first = r.in_off < 0;
+    const In<T> in{first ? static_cast<const void*>(src + grp.plane0 *
+                                                          plane_size)
+                         : scratch + grp.plane0 * scratch_words + r.in_off,
+                   first ? plane_size : scratch_words, first ? width : r.w,
+                   r.h, shift, first, first && g3};
+    if constexpr (kIct) {
+      if (grp.nb == 3) {
+        fwd_item<3>(r, item, valid, ln, in, grp.plane0, out, scratch,
+                    scratch_words, plane_size, width);
+        return;
+      }
     }
-  }
+    fwd_item<1>(r, item, valid, ln, in, grp.plane0, out, scratch,
+                scratch_words, plane_size, width);
+  });
 }
 
 template <typename T, bool kIct>
-__global__ void __launch_bounds__(kThreads, gdct::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kIct ? 1 : 2)
     fwd97_stage_kernel(const T* src, float* out, float* scratch,
                        int n_frames, int n_comps, int height, int width,
-                       int shift, int mct, Schedule s) {
-  extern __shared__ float buf[];
+                       int shift, int mct, Schedule97 s) {
   cg::grid_group grid = cg::this_grid();
   const long long plane_size = static_cast<long long>(height) * width;
   const bool ict = kIct && mct != 0 && n_comps >= 3;
@@ -203,10 +303,16 @@ __global__ void __launch_bounds__(kThreads, gdct::kMinBlocks)
         const long long at = f * n_comps * plane_size + e;
         int c = 0;
         if (ict) {
-          const In<T> in{src + at, plane_size, 0, 1, 1, shift, true};
-          float v[3];
-          in.template fetch<3>(0, 0, v);
-          for (; c < 3; ++c) out[at + c * plane_size] = v[c];
+          const In<T> in{src, 0, 0, 1, shift, true, true};
+          uint32_t raw[3][kCols];
+          float v[3][kCols];
+          for (int k = 0; k < 3; ++k) {
+            for (int c = 0; c < kCols; ++c) {
+              raw[k][c] = to_raw(src[at + k * plane_size]);
+            }
+          }
+          in.template finish<3>(raw, v, gdct97::kOnlyRow);
+          for (; c < 3; ++c) out[at + c * plane_size] = v[c][0];
         }
         for (; c < n_comps; ++c) {
           out[at + c * plane_size] = widen(src[at + c * plane_size], shift);
@@ -215,6 +321,7 @@ __global__ void __launch_bounds__(kThreads, gdct::kMinBlocks)
     }
     return;
   }
+  const int warp = threadIdx.x >> 5;
   for (int r0 = 0; r0 < s.n_rows;) {
     int r1 = r0 + 1;
     // the ICT group: only the first level reads the samples
@@ -223,24 +330,23 @@ __global__ void __launch_bounds__(kThreads, gdct::kMinBlocks)
         static_cast<long long>(n_frames) * gdct::groups(n_comps, g3);
     if (s.row[r0].kind == gdct::kBlockRow) {
       while (r1 < s.n_rows && s.row[r1].kind == gdct::kBlockRow) ++r1;
-      const gdct::Share sh = gdct::share(n_groups);
-      for (long long gi = sh.first; gi < n_groups; gi += sh.step) {
-        const gdct::Group g = gdct::group(gi, n_comps, g3);
-        for (int ri = r0; ri < r1; ++ri) {
-          fwd_level<kIct>(s, ri, -1, g, g3, src, shift, out, scratch,
-                          plane_size, width, buf);
-        }
-      }
-    } else {
-      const Row& r = s.row[r0];
-      const long long tiles = static_cast<long long>(
-                                  (r.w + s.tile - 1) / s.tile) *
-                              ((r.h + s.tile - 1) / s.tile);
-      for (long long it = blockIdx.x; it < n_groups * tiles;
-           it += gridDim.x) {
-        const long long gi = it / tiles;
-        fwd_level<kIct>(s, r0, it - gi * tiles, gdct::group(gi, n_comps, g3),
-                        g3, src, shift, out, scratch, plane_size, width, buf);
+    }
+    // the head: one block a plane group, all its levels; a grid row: every
+    // group over every warp of the grid
+    const bool head = s.row[r0].kind == gdct::kBlockRow;
+    const gdct::Share sh = head ? gdct::share(n_groups)
+                                : gdct::Share{0, n_groups};
+    for (long long gi = sh.first; gi < n_groups; gi += sh.step) {
+      for (int ri = r0; ri < r1; ++ri) {
+        fwd_level<kIct>(s.row[ri], s.scratch, gi,
+                        head ? gi + 1 : n_groups,
+                        head ? warp : blockIdx.x * gdct97::kWarps + warp,
+                        head ? gdct97::kWarps
+                             : static_cast<long long>(gridDim.x) *
+                                   gdct97::kWarps,
+                        g3, n_comps, src, shift, out, scratch, plane_size,
+                        width);
+        if (head) __syncthreads();  // the next level reads this one's LL
       }
     }
     r0 = r1;
@@ -249,41 +355,63 @@ __global__ void __launch_bounds__(kThreads, gdct::kMinBlocks)
 }
 
 template <typename T>
+const void* stage_kernel(bool ict) {
+  return ict ? reinterpret_cast<const void*>(fwd97_stage_kernel<T, true>)
+             : reinterpret_cast<const void*>(fwd97_stage_kernel<T, false>);
+}
+
+// The kernel of `dtype` (gdct_j2k97_fwd_stage's codes), or null.
+const void* stage_kernel(int dtype, bool ict) {
+  switch (dtype) {
+    case 0:
+      return stage_kernel<uint16_t>(ict);
+    case 1:
+      return stage_kernel<int16_t>(ict);
+    case 2:
+      return stage_kernel<int>(ict);
+    case 3:
+      return stage_kernel<uint8_t>(ict);
+    case 4:
+      return stage_kernel<float>(ict);
+    default:
+      return nullptr;
+  }
+}
+
+template <typename T>
 int launch(const void* src, void* out, void* scratch, int n_frames,
            int n_comps, int height, int width, int shift, int mct,
-           const int* table, int n_rows, int tile, int scratch_words,
-           void* stream) {
+           const int* table, int n_rows, int scratch_words, void* stream) {
   if (n_frames < 1 || n_comps < 1 || height < 1 || width < 1 ||
       src == nullptr || out == nullptr || out == src ||
       (std::is_same_v<T, float> && shift != 0) ||
       (scratch_words > 0 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Schedule s{};
-  long long max_tiles = 0;
-  const int bad = gdct::read_schedule(table, n_rows, tile, scratch_words,
-                                      width, height, false, &s, &max_tiles);
+  Schedule97 s{};
+  long long max_warps = 0;
+  const int bad = gdct97::read_schedule97(table, n_rows, scratch_words,
+                                          width, height, kHalo, false, &s,
+                                          &max_warps);
   if (bad) return bad;
   const bool ict = mct != 0 && n_comps >= 3;
   const long long n_planes = static_cast<long long>(n_frames) * n_comps;
-  const long long max_items =
-      n_rows > 0 ? n_planes * max_tiles
-                 : (static_cast<long long>(height) * width + kThreads - 1) /
-                       kThreads;
-  const size_t smem =
-      n_rows > 0 ? static_cast<size_t>(ict ? 3 : 1) *
-                       gdct97::tile_words(tile, kHalo) * sizeof(float)
-                 : 0;
+  // blocks to keep every grid row's items and every plane group busy
+  const long long want =
+      n_rows > 0
+          ? std::max(n_planes,
+                     (n_planes * max_warps + gdct97::kWarps - 1) /
+                         gdct97::kWarps)
+          : (static_cast<long long>(height) * width + kThreads - 1) /
+                kThreads;
 
-  const void* kernel =
-      ict ? reinterpret_cast<const void*>(fwd97_stage_kernel<T, true>)
-          : reinterpret_cast<const void*>(fwd97_stage_kernel<T, false>);
+  const void* kernel = stage_kernel<T>(ict);
   int resident = 0;
-  cudaError_t err = gdct::resident_blocks(kernel, smem, &resident);
+  cudaError_t err = gdct::resident_blocks(kernel, 0, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   // every block must be resident at once for grid.sync()
   const unsigned grid = static_cast<unsigned>(
-      std::max<long long>(1, std::min<long long>(resident, max_items)));
+      std::max<long long>(1, std::min<long long>(resident, want)));
 
   const T* src_t = static_cast<const T*>(src);
   float* out_t = static_cast<float*>(out);
@@ -291,7 +419,7 @@ int launch(const void* src, void* out, void* scratch, int n_frames,
   void* args[] = {&src_t,  &out_t, &scratch_t, &n_frames, &n_comps,
                   &height, &width, &shift,     &mct,      &s};
   err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
-                                    smem, static_cast<cudaStream_t>(stream));
+                                    0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -301,37 +429,45 @@ int launch(const void* src, void* out, void* scratch, int n_frames,
 // src: [n_frames × n_comps planes, H, W] of dtype 0 uint16, 1 int16,
 // 2 int32, 3 uint8, 4 float32 (shift 0; not the output itself). mct: the
 // ICT of components 0-2 where n_comps >= 3. table: n_rows rows of
-// gdct::kRowCols int32 (lifting.cuh::Row), finest first, tile: their tile
-// side; scratch: n_planes × scratch_words float32 (may be null when
+// gdct97::kRow97Cols int32 (lifting97.cuh::Row97), finest first;
+// scratch: n_planes × scratch_words float32 (may be null when
 // scratch_words is 0). out: float32 [planes, H, W].
 extern "C" int gdct_j2k97_fwd_stage(const void* src, int dtype, void* out,
                                     void* scratch, int n_frames, int n_comps,
                                     int height, int width, int shift,
                                     int mct, const int* table, int n_rows,
-                                    int tile, int scratch_words,
-                                    void* stream) {
+                                    int scratch_words, void* stream) {
   switch (dtype) {
     case 0:
       return launch<uint16_t>(src, out, scratch, n_frames, n_comps, height,
-                              width, shift, mct, table, n_rows, tile,
+                              width, shift, mct, table, n_rows,
                               scratch_words, stream);
     case 1:
       return launch<int16_t>(src, out, scratch, n_frames, n_comps, height,
-                             width, shift, mct, table, n_rows, tile,
+                             width, shift, mct, table, n_rows,
                              scratch_words, stream);
     case 2:
       return launch<int>(src, out, scratch, n_frames, n_comps, height, width,
-                         shift, mct, table, n_rows, tile, scratch_words,
+                         shift, mct, table, n_rows, scratch_words,
                          stream);
     case 3:
       return launch<uint8_t>(src, out, scratch, n_frames, n_comps, height,
-                             width, shift, mct, table, n_rows, tile,
+                             width, shift, mct, table, n_rows,
                              scratch_words, stream);
     case 4:
       return launch<float>(src, out, scratch, n_frames, n_comps, height,
-                           width, shift, mct, table, n_rows, tile,
+                           width, shift, mct, table, n_rows,
                            scratch_words, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The warps of the kernel that gdct_j2k97_fwd_stage launches for `dtype`
+// (its codes) and `ict` (mct with 3 components or more) that the current
+// device holds at once, and the warps of one block (gdct97::resident_warps).
+extern "C" int gdct_j2k97_fwd_warps(int dtype, int ict, int* grid_warps,
+                                    int* block_warps) {
+  return gdct97::resident_warps(stage_kernel(dtype, ict != 0), grid_warps,
+                                block_warps);
 }

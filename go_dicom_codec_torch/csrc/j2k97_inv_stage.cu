@@ -15,25 +15,35 @@
 // once (8/3 bytes a sample over all levels). Its time on an H100 stands in
 // PERF.md §6.
 //
-// Design: j2k_inv_stage.cu's skeleton in float32 with lifting97.cuh's tile
-// pass: one persistent cooperative launch over a host-built table of
-// levels (lifting.cuh::Row), coarsest first, each level one tile pass: a
-// block loads the packed coefficients that reconstruct its tile and a halo
-// of 6 (the reference's six lifting steps) — the LL from where the level
-// above wrote it (row.in_off in scratch; the coarsest level's from the
-// input), the high bands from the input, which is never written — then
-// undoes the row lifting and the column lifting in shared memory and
-// stores the tile interleaved:
+// Design: j2k_inv_stage.cu's skeleton in float32 with lifting97.cuh's
+// register-resident strip pass (a halo of 6: the reference's six lifting
+// steps): one persistent cooperative launch over a host-built table of
+// levels (Row97: each level's strip lanes and segment rows), coarsest
+// first, each level one strip pass:
 //
-// 1. The head: the coarsest levels whose window holds at most the host's
-//    budget of samples are block rows, one block a plane group running
-//    all of them with only block barriers between them.
-// 2. The finer levels are grid rows: (plane group, tile) items over the
-//    grid, a grid barrier after each; a level's reconstruction goes to
-//    scratch (two areas in turns: a level may not overwrite what other
-//    tiles of its own pass still read).
+// 1. The head: the coarsest levels, at most 64 samples each way, are
+//    block rows, one block a plane group running all of them with only
+//    block barriers between them.
+// 2. The finer levels are grid rows: their work items (plane group,
+//    strip, segment) over the strips of every warp of the grid, a grid
+//    barrier after each; inside a level the warps share nothing: no shared
+//    memory, no block barrier. A level's reconstruction goes to scratch
+//    (two areas in turns: a level may not overwrite what other items of
+//    its own pass still read).
+//
+// Both run one inlined copy of the level pass (inv_level). A warp's strip
+// walks its segment's rows in pairs. Each row it loads — a lane's low
+// columns from the packed row's low half and its high columns from the
+// high half, so a row is two coalesced runs of 64 floats, the LL from
+// where the level above wrote it (row.in_off in scratch; the coarsest
+// level's from the input), the high bands from the input, which is never
+// written — is scaled by K and 1/K and lifted along x at once through
+// warp shuffles, scaled along y, and goes into the column steps, which run
+// in registers as the rows arrive (gdct97::Column). Each row that comes
+// out is stored interleaved:
+//
 // 3. The finest level stores the samples: with mct set and a frame of 3 or
-//    more components, components 0-2 are one item of three buffers and
+//    more components, components 0-2 are one item of three planes and
 //    their inverse ICT runs at the store (components 3 and up pass
 //    through); then __float2int_rn (round half to even; NaN → 0, out of
 //    range → INT32_MIN or INT32_MAX, as the reference's jnp.round and
@@ -45,6 +55,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "lifting97.cuh"
 
@@ -53,12 +64,14 @@ namespace cg = cooperative_groups;
 namespace {
 
 using gdct::kThreads;
-using gdct::Row;
-using gdct::Schedule;
 using gdct::wadd;
+using gdct97::Item;
+using gdct97::kCols;
+using gdct97::Lanes;
+using gdct97::Row97;
+using gdct97::Schedule97;
 
 constexpr int kHalo = 6;
-using Tile = gdct97::Tile<kHalo>;
 
 enum Epilogue { kCoeffs = 0, kPixels = 1, kNarrow = 2 };
 
@@ -93,37 +106,75 @@ struct Pixels {
   }
 };
 
-// A level's packed coefficients for its planes at the packed place of
-// window position (y, x): the LL (py < sny, px < snx) from `ll`, the rest
-// from the input `h`.
+// A level's packed coefficients for run_item, for one work item: row y of
+// the window is packed row py; the lane's columns are packed columns
+// px[c] (low for even c, high for odd c). Where both are low (py < sny,
+// px < snx) the sample is the LL's, from `ll`, else the input's, `h`.
+// finish scales a row by K and 1/K and lifts it along x, then scales it
+// along y.
 struct Packed {
+  using Raw = float;
   const float* h;
   long long h_stride;
   int h_pitch;
   const float* ll;
   long long ll_stride;
-  int ll_pitch, w, hgt, lo_x, lo_y, snx, sny;
+  int ll_pitch, w, hgt, lo_y, sny;
+  int px[kCols];
+  bool low[kCols];
+  const Lanes& ln;
 
   template <int kNb>
-  __device__ __forceinline__ void fetch(int y, int x, float* v) const {
+  __device__ __forceinline__ void load(int y, const Item&,
+                                       float (&raw)[kNb][kCols]) const {
     const int py =
-        gdct::interleaved_to_packed(gdct::fold(y, hgt), sny, lo_y);
-    const int px = gdct::interleaved_to_packed(gdct::fold(x, w), snx, lo_x);
-    if (py < sny && px < snx) {
-      const float* at = ll + static_cast<long long>(py) * ll_pitch + px;
+        gdct::interleaved_to_packed(gdct97::fold97(y, hgt), sny, lo_y);
+    const float* hrow = h + static_cast<long long>(py) * h_pitch;
+    const bool ll_row = py < sny;
+    const float* lrow =
+        ll_row ? ll + static_cast<long long>(py) * ll_pitch : hrow;
 #pragma unroll
-      for (int k = 0; k < kNb; ++k) v[k] = at[k * ll_stride];
-    } else {
-      const float* at = h + static_cast<long long>(py) * h_pitch + px;
+    for (int c = 0; c < kCols; ++c) {
+      const float* at = (low[c] ? lrow : hrow) + px[c];
+      const long long stride = low[c] && ll_row ? ll_stride : h_stride;
 #pragma unroll
-      for (int k = 0; k < kNb; ++k) v[k] = at[k * h_stride];
+      for (int k = 0; k < kNb; ++k) raw[k][c] = at[k * stride];
+    }
+  }
+
+  template <int kNb>
+  __device__ __forceinline__ void finish(const float (&raw)[kNb][kCols],
+                                         float (&v)[kNb][kCols],
+                                         int kind) const {
+#pragma unroll
+    for (int k = 0; k < kNb; ++k) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) v[k][c] = raw[k][c];
+    }
+    if (w > 1) {
+#pragma unroll
+      for (int k = 0; k < kNb; ++k) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          v[k][c] = __fmul_rn(v[k][c], c % 2 ? gdct97::kInvK : gdct97::kK);
+        }
+      }
+      gdct97::lift_x<true, kNb>(ln, v);
+    }
+    if (kind != gdct97::kOnlyRow) {
+      const float f = kind == gdct97::kLowRow ? gdct97::kK : gdct97::kInvK;
+#pragma unroll
+      for (int k = 0; k < kNb; ++k) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) v[k][c] = __fmul_rn(v[k][c], f);
+      }
     }
   }
 };
 
-// Where a level's reconstruction goes: its planes at `base` (scratch,
-// `stride` words apart, rows `pitch` words apart), or the output (base
-// null).
+// Where a level's rows go: its planes at `base` (scratch, `stride` words
+// apart, rows `pitch` words apart), or the output (base null) through the
+// epilogue, the ICT for an item of three planes with `ict`.
 struct Recon {
   float* base;
   long long stride;
@@ -132,102 +183,105 @@ struct Recon {
   long long plane0, plane_size;
   int width;
   bool ict;
+  const Item& it;
 
   template <int kNb>
-  __device__ __forceinline__ void put(int qy, int qx, const float* at,
-                                      int words) const {
-    if (base != nullptr) {
-      float* dst = base + static_cast<long long>(qy) * pitch + qx;
+  __device__ __forceinline__ void operator()(int y,
+                                             float (&v)[kNb][kCols],
+                                             int) const {
+    if (!it.row_out(y)) return;
+    const int x = it.x;
 #pragma unroll
-      for (int k = 0; k < kNb; ++k) dst[k * stride] = at[k * words];
-      return;
-    }
-    const long long e =
-        plane0 * plane_size + static_cast<long long>(qy) * width + qx;
-    if constexpr (kNb == 3) {
-      if (ict) {
-        px.put_ict(e, plane_size, at[0], at[words], at[2 * words]);
-        return;
+    for (int c = 0; c < kCols; ++c) {
+      if (!it.stored(c)) continue;
+      if (base != nullptr) {
+        float* dst = base + static_cast<long long>(y) * pitch + x + c;
+#pragma unroll
+        for (int k = 0; k < kNb; ++k) dst[k * stride] = v[k][c];
+        continue;
       }
-    }
+      const long long e =
+          plane0 * plane_size + static_cast<long long>(y) * width + x + c;
+      if constexpr (kNb == 3) {
+        if (ict) {
+          px.put_ict(e, plane_size, v[0][c], v[1][c], v[2][c]);
+          continue;
+        }
+      }
 #pragma unroll
-    for (int k = 0; k < kNb; ++k) px.put(e + k * plane_size, at[k * words]);
+      for (int k = 0; k < kNb; ++k) px.put(e + k * plane_size, v[k][c]);
+    }
   }
 };
 
-// One tile of level `r` for kNb planes: load the packed coefficients of
-// the tile and its halo in interleaved order, undo the lifting, store.
-// Thread i stores column i % 64 of the tile's rows i / 64, i / 64 + 4, ...
+// Work item `item` of level `r` for the kNb planes from plane0: its
+// packed coefficients (the LL from `ll` at `ll_pitch`, the high bands
+// from `h`), its reconstruction to `scratch` (out_off >= 0) or the output.
 template <int kNb>
-__device__ void inv_tile(const Packed& load, const Recon& store,
-                         const Row& r, int tsize, long long tile,
-                         float* buf) {
-  const int tiles_x = (r.w + tsize - 1) / tsize;
-  const Tile t(tsize, r.w, r.h, static_cast<int>(tile / tiles_x),
-               static_cast<int>(tile % tiles_x));
-  gdct97::load_tile<kHalo, kNb>(load, t, buf);
-  gdct97::inv_lift<kHalo, kNb>(buf, t, r.even_x ? 0 : 1, r.even_y ? 0 : 1,
-                               r.w, r.h);
-  const int c = threadIdx.x & 63;
-  if (c < t.tex) {
-    const int bx = gdct::xs(kHalo + c, t.hx);
-    for (int oy = threadIdx.x >> 6; oy < t.tey; oy += 4) {
-      store.put<kNb>(t.ty0 + oy, t.tx0 + c,
-                     buf + (kHalo + oy) * t.pitch + bx, t.words);
-    }
-  }
-  __syncthreads();  // the next tile loads into buf again
-}
-
-// inv_tile for a group of nb planes. kIct: the launch has groups of three
-// planes (the gray kernel carries no code for them).
-template <bool kIct, typename... Args>
-__device__ __forceinline__ void inv_tile_nb(int nb, Args&... args) {
-  if constexpr (kIct) {
-    if (nb == 3) {
-      inv_tile<3>(args...);
-      return;
-    }
-  }
-  inv_tile<1>(args...);
-}
-
-// Every tile of level `ri` for one plane group, or tile `tile` alone.
-template <bool kIct>
-__device__ void inv_level(const Schedule& s, int ri, long long tile,
-                          gdct::Group g, bool ict, const float* src,
-                          float* scratch, long long plane_size, int width,
-                          const Pixels& px, float* buf) {
-  const Row& r = s.row[ri];
-  const int lo_x = r.even_x ? 0 : 1, lo_y = r.even_y ? 0 : 1;
+__device__ __forceinline__ void inv_item(const Row97& r, long long item,
+                                         bool valid, const Lanes& ln,
+                                         const float* h, const float* ll,
+                                         long long ll_stride, int ll_pitch,
+                                         float* scratch,
+                                         long long scratch_words,
+                                         long long plane0,
+                                         long long plane_size, int width,
+                                         const Pixels& pix, bool ict) {
+  const Item it(r, gdct97::Items(r, kHalo), item, valid, ln, kHalo);
+  const int lo_x = 1 - r.even_x;
   const int snx = (r.w + r.even_x) >> 1, sny = (r.h + r.even_y) >> 1;
-  const float* h = src + g.plane0 * plane_size;
-  const Recon store{
-      r.out_off < 0 ? nullptr : scratch + g.plane0 * s.scratch + r.out_off,
-      s.scratch, r.w, px, g.plane0, plane_size, width, ict};
-  // the LL: the input at the coarsest level, else the level above's
-  const Packed load =
-      r.in_off < 0
-          ? Packed{h, plane_size, width, h, plane_size, width, r.w, r.h,
-                   lo_x, lo_y, snx, sny}
-          : Packed{h, plane_size, width,
-                   scratch + g.plane0 * s.scratch + r.in_off, s.scratch, snx,
-                   r.w, r.h, lo_x, lo_y, snx, sny};
-  const int tiles = ((r.w + s.tile - 1) / s.tile) *
-                    ((r.h + s.tile - 1) / s.tile);
-  const long long first = tile < 0 ? 0 : tile;
-  const long long end = tile < 0 ? tiles : tile + 1;
-  for (long long t = first; t < end; ++t) {
-    inv_tile_nb<kIct>(g.nb, load, store, r, s.tile, t, buf);
+  Packed src{h, plane_size, width, ll, ll_stride, ll_pitch, r.w, r.h,
+             1 - r.even_y, sny, {}, {}, ln};
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    src.px[c] = gdct::interleaved_to_packed(it.fx[c], snx, lo_x);
+    src.low[c] = src.px[c] < snx;
   }
+  const Recon emit{r.out_off < 0 ? nullptr : scratch + r.out_off,
+                   scratch_words, r.w, pix, plane0, plane_size, width, ict,
+                   it};
+  gdct97::run_item<true, kNb>(r, it, src, emit, kHalo);
+}
+
+// Level `r` for the plane groups [g_lo, g_hi), its items over `warps`
+// warps from `warp`; the head's rows and the grid rows call it from one
+// place, so the kernel holds one copy of the strip pass.
+template <bool kIct>
+__device__ __forceinline__ void inv_level(Row97 r, long long scratch_words,
+                                       long long g_lo, long long g_hi,
+                                       long long warp, long long warps,
+                                       bool g3, int n_comps,
+                                       const float* src, float* scratch,
+                                       long long plane_size, int width,
+                                       Pixels px) {
+  const Lanes ln(r.lanes);
+  const long long per = gdct97::Items(r, kHalo).count();
+  gdct97::for_items(g_hi - g_lo, per, warp, warps, ln,
+                    [&](long long g, long long item, bool valid) {
+    const gdct::Group grp = gdct::group(g_lo + g, n_comps, g3);
+    const float* h = src + grp.plane0 * plane_size;
+    float* area = scratch + grp.plane0 * scratch_words;
+    // the LL: the input at the coarsest level, else the level above's
+    const float* ll = r.in_off < 0 ? h : area + r.in_off;
+    const long long ll_stride = r.in_off < 0 ? plane_size : scratch_words;
+    const int ll_pitch = r.in_off < 0 ? width : (r.w + r.even_x) >> 1;
+    if constexpr (kIct) {
+      if (grp.nb == 3) {
+        inv_item<3>(r, item, valid, ln, h, ll, ll_stride, ll_pitch, area,
+                    scratch_words, grp.plane0, plane_size, width, px, g3);
+        return;
+      }
+    }
+    inv_item<1>(r, item, valid, ln, h, ll, ll_stride, ll_pitch, area,
+                scratch_words, grp.plane0, plane_size, width, px, g3);
+  });
 }
 
 template <bool kIct>
-__global__ void __launch_bounds__(kThreads, gdct::kMinBlocks)
+__global__ void __launch_bounds__(kThreads, kIct ? 1 : 2)
     inv97_stage_kernel(const float* src, float* scratch, int n_frames,
-                       int n_comps, int height, int width, Schedule s,
+                       int n_comps, int height, int width, Schedule97 s,
                        int mct, Pixels px) {
-  extern __shared__ float buf[];
   cg::grid_group grid = cg::this_grid();
   const long long plane_size = static_cast<long long>(height) * width;
   const bool ict = kIct && mct != 0 && n_comps >= 3;
@@ -252,6 +306,7 @@ __global__ void __launch_bounds__(kThreads, gdct::kMinBlocks)
     }
     return;
   }
+  const int warp = threadIdx.x >> 5;
   for (int r0 = 0; r0 < s.n_rows;) {
     int r1 = r0 + 1;
     if (s.row[r0].kind == gdct::kBlockRow) {
@@ -261,25 +316,20 @@ __global__ void __launch_bounds__(kThreads, gdct::kMinBlocks)
     const bool g3 = ict && r1 == s.n_rows;
     const long long n_groups =
         static_cast<long long>(n_frames) * gdct::groups(n_comps, g3);
-    if (s.row[r0].kind == gdct::kBlockRow) {
-      const gdct::Share sh = gdct::share(n_groups);
-      for (long long gi = sh.first; gi < n_groups; gi += sh.step) {
-        const gdct::Group g = gdct::group(gi, n_comps, g3);
-        for (int ri = r0; ri < r1; ++ri) {
-          inv_level<kIct>(s, ri, -1, g, g3, src, scratch, plane_size, width,
-                          px, buf);
-        }
-      }
-    } else {
-      const Row& r = s.row[r0];
-      const long long tiles = static_cast<long long>(
-                                  (r.w + s.tile - 1) / s.tile) *
-                              ((r.h + s.tile - 1) / s.tile);
-      const gdct::Share sh = gdct::share(n_groups * tiles);
-      for (long long it = sh.first; it < n_groups * tiles; it += sh.step) {
-        const long long gi = it / tiles;
-        inv_level<kIct>(s, r0, it - gi * tiles, gdct::group(gi, n_comps, g3),
-                        g3, src, scratch, plane_size, width, px, buf);
+    // the head: one block a plane group, all its levels; a grid row: every
+    // group over every warp of the grid
+    const bool head = s.row[r0].kind == gdct::kBlockRow;
+    const gdct::Share sh = head ? gdct::share(n_groups)
+                                : gdct::Share{0, n_groups};
+    for (long long gi = sh.first; gi < n_groups; gi += sh.step) {
+      for (int ri = r0; ri < r1; ++ri) {
+        inv_level<kIct>(s.row[ri], s.scratch, gi, head ? gi + 1 : n_groups,
+                        head ? warp : blockIdx.x * gdct97::kWarps + warp,
+                        head ? gdct97::kWarps
+                             : static_cast<long long>(gridDim.x) *
+                                   gdct97::kWarps,
+                        g3, n_comps, src, scratch, plane_size, width, px);
+        if (head) __syncthreads();  // the next level reads this one's
       }
     }
     r0 = r1;
@@ -287,12 +337,17 @@ __global__ void __launch_bounds__(kThreads, gdct::kMinBlocks)
   }
 }
 
+const void* stage_kernel(bool ict) {
+  return ict ? reinterpret_cast<const void*>(inv97_stage_kernel<true>)
+             : reinterpret_cast<const void*>(inv97_stage_kernel<false>);
+}
+
 }  // namespace
 
 // src: float32 dequantized coefficients [n_frames × n_comps planes, H, W]
-// (not the output itself). table: n_rows rows of gdct::kRowCols int32
-// (lifting.cuh::Row), coarsest first, tile: their tile side; scratch:
-// n_planes × scratch_words float32 (may be null when scratch_words is 0).
+// (not the output itself). table: n_rows rows of gdct97::kRow97Cols int32
+// (lifting97.cuh::Row97), coarsest first; scratch: n_planes ×
+// scratch_words float32 (may be null when scratch_words is 0).
 // out: float32 (epilogue 0), int32 (1) or 16 bits (2) [planes, H, W], the
 // planes frame-major (n_comps a frame). mct: the inverse ICT of components
 // 0-2 where n_comps >= 3 (not with epilogue 0); dc: added after the round;
@@ -300,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, gdct::kMinBlocks)
 extern "C" int gdct_j2k97_inv_stage(const void* src, void* out,
                                     void* scratch, int n_frames, int n_comps,
                                     int height, int width, const int* table,
-                                    int n_rows, int tile, int scratch_words,
+                                    int n_rows, int scratch_words,
                                     int epilogue, int mct, int dc, int lo,
                                     int hi, void* stream) {
   if (n_frames < 1 || n_comps < 1 || height < 1 || width < 1 ||
@@ -309,32 +364,31 @@ extern "C" int gdct_j2k97_inv_stage(const void* src, void* out,
       (scratch_words > 0 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Schedule s{};
-  long long max_tiles = 0;
-  const int bad = gdct::read_schedule(table, n_rows, tile, scratch_words,
-                                      width, height, true, &s, &max_tiles);
+  Schedule97 s{};
+  long long max_warps = 0;
+  const int bad = gdct97::read_schedule97(table, n_rows, scratch_words,
+                                          width, height, kHalo, true, &s,
+                                          &max_warps);
   if (bad) return bad;
   if (epilogue == kCoeffs) mct = 0;
   const bool ict = mct != 0 && n_comps >= 3;
   const long long n_planes = static_cast<long long>(n_frames) * n_comps;
-  const long long max_items =
-      n_rows > 0 ? n_planes * max_tiles
-                 : (static_cast<long long>(height) * width + kThreads - 1) /
-                       kThreads;
-  const size_t smem =
-      n_rows > 0 ? static_cast<size_t>(ict ? 3 : 1) *
-                       gdct97::tile_words(tile, kHalo) * sizeof(float)
-                 : 0;
+  // blocks to keep every grid row's items and every plane group busy
+  const long long want =
+      n_rows > 0
+          ? std::max(n_planes,
+                     (n_planes * max_warps + gdct97::kWarps - 1) /
+                         gdct97::kWarps)
+          : (static_cast<long long>(height) * width + kThreads - 1) /
+                kThreads;
 
-  const void* kernel =
-      ict ? reinterpret_cast<const void*>(inv97_stage_kernel<true>)
-          : reinterpret_cast<const void*>(inv97_stage_kernel<false>);
+  const void* kernel = stage_kernel(ict);
   int resident = 0;
-  cudaError_t err = gdct::resident_blocks(kernel, smem, &resident);
+  cudaError_t err = gdct::resident_blocks(kernel, 0, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   // every block must be resident at once for grid.sync()
   const unsigned grid = static_cast<unsigned>(
-      std::max<long long>(1, std::min<long long>(resident, max_items)));
+      std::max<long long>(1, std::min<long long>(resident, want)));
 
   const float* src_t = static_cast<const float*>(src);
   float* scratch_t = static_cast<float*>(scratch);
@@ -342,7 +396,17 @@ extern "C" int gdct_j2k97_inv_stage(const void* src, void* out,
   void* args[] = {&src_t, &scratch_t, &n_frames, &n_comps, &height, &width,
                   &s,     &mct,       &px};
   err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args,
-                                    smem, static_cast<cudaStream_t>(stream));
+                                    0, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The warps of the kernel that gdct_j2k97_inv_stage launches with the
+// inverse ICT or without (`ict`: mct with 3 components or more, and not
+// epilogue 0) that the current device holds at once, and the warps of one
+// block (gdct97::resident_warps).
+extern "C" int gdct_j2k97_inv_warps(int ict, int* grid_warps,
+                                    int* block_warps) {
+  return gdct97::resident_warps(stage_kernel(ict != 0), grid_warps,
+                                block_warps);
 }

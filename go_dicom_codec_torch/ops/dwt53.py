@@ -274,7 +274,8 @@ def fwd_schedule(width: int, height: int, levels: int, x0: int = 0,
 
 def fwd_table(wins):
     """A forward stage's (tile, scratch words a plane, rows) for its level
-    windows ``wins``, finest first (``fwd_schedule``; the 9/7's too)."""
+    windows ``wins``, finest first (``fwd_schedule``; the 9/7's
+    ``fwd97_schedule`` extends its rows)."""
     outs, words = _scratch([_ll_size(*win) for win in wins[:-1]])
     rows = []
     for i, (w, h, lx0, ly0) in enumerate(wins):
@@ -296,7 +297,8 @@ def _inv_schedule(width: int, height: int, levels: int, x0: int, y0: int,
 
 def inv_table(wins, head_samples: int, head_side):
     """An inverse stage's (tile, scratch words a plane, rows) for its level
-    windows ``wins``, finest first (``_inv_schedule``; the 9/7's too)."""
+    windows ``wins``, finest first (``_inv_schedule``; the 9/7's
+    ``inv97_schedule`` extends its rows)."""
     wins = wins[::-1]
     # coarsest first; a level's reconstruction is the next one's LL: the
     # last-but-one is the largest, so the areas are handed out from the

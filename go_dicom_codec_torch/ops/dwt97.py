@@ -12,8 +12,9 @@ input as it was. Two lanes:
 - the kernel lane: for a CUDA tensor the whole forward transform is one
   launch of ``csrc/j2k97_fwd_stage.cu`` and the whole inverse one launch
   of ``csrc/j2k97_inv_stage.cu`` (``fwd97_schedule`` and
-  ``inv97_schedule`` are their level tables, built as the 5/3 stages'
-  are, ``ops/dwt53.py``), bit-exact against the plain lane.
+  ``inv97_schedule`` are their level tables: one strip pass a level,
+  register-resident, ``csrc/lifting97.cuh``), bit-exact against the
+  plain lane.
 
 ``fwd97_multilevel``/``inv97_multilevel`` pick the kernel lane for a CUDA
 tensor and the plain lane for a CPU tensor; any other device raises. The
@@ -150,6 +151,99 @@ def inv97_multilevel_plain(x: torch.Tensor, levels: int, x0: int = 0,
 
 # ---- the 9/7 stages' level tables ---------------------------------------------
 
+# The strip pass of csrc/lifting97.cuh: a strip is ``lanes`` lanes of a
+# warp (8, 16 or 32 here; the kernel takes 4 too; a warp runs 32 / lanes
+# strips side by side), each lane ``_PAIRS`` pairs of ext columns (a low
+# one, the high one right of it: the kernel's kPairs), and yields
+# 2·_PAIRS·lanes - 2·halo output columns: 120 forward and 116 inverse at
+# 32 lanes. A level takes the fewest lanes whose strip covers its
+# window's width, at most ``_LANES``.
+_PAIRS = _kernels.STRIP_PAIRS
+_LANES = 32
+_MIN_LANES = 8
+# The output rows of a segment, the vertical unit of a strip (even), one
+# of ``_SEGS`` up to ``_SEG`` and never taller than the window. A segment
+# also lifts a halo of rows above and below it, and its steps are a chain
+# of S/2 + halo pairs of rows: a level takes the height whose rounds of
+# work items over the warps that run it, times that chain, is the least,
+# the tallest of equals. A grid level's items (all plane groups: a plane
+# each, but a frame's components 0-2 one group at the level that runs the
+# ICT) run on the kernel's resident warps, a head level's (one plane
+# group) on one block's warps: both as the launch measures them for the
+# kernel variant (``_kernels.j2k97_fwd_warps``, ``j2k97_inv_warps``),
+# passed in as ``warps`` = (grid warps, block warps).
+_SEG = 64
+_SEGS = (64, 32, 16, 8, 4)
+# The coarse levels whose window is at most ``_HEAD_SIDE`` samples each
+# way run in the stage's head: one block a plane group, with block
+# barriers only.
+_HEAD_SIDE = 64
+# The stages' halos: a sample a lifting step, four forward, six inverse
+# (the reference's six, two of them with a coefficient of 0.0).
+FWD97_HALO, INV97_HALO = _kernels.FWD97_HALO, _kernels.INV97_HALO
+
+
+def strip_lanes(w: int, halo: int) -> int:
+    """The lanes of a strip of a window ``w`` wide: the fewest whose
+    2·_PAIRS·lanes - 2·halo output columns cover it, at most ``_LANES``."""
+    lanes = min(_MIN_LANES, _LANES)
+    while lanes < _LANES and 2 * _PAIRS * lanes - 2 * halo < w:
+        lanes *= 2
+    return lanes
+
+
+def strip_items(w: int, h: int, lanes: int, seg: int, halo: int):
+    """(strips, segments) of a level window: its work items."""
+    return -(-w // (2 * _PAIRS * lanes - 2 * halo)), -(-h // seg)
+
+
+def _seg_rows(w: int, h: int, lanes: int, halo: int, groups: int,
+              warps: int) -> int:
+    """The segment height of a level window over ``groups`` plane groups
+    run by ``warps`` warps: the one of ``_SEGS`` (at most ``_SEG`` and the
+    window's height rounded up to even) whose rounds of items times its
+    chain of pairs is the least, the tallest of equals."""
+    top = h + (h & 1)
+    best = None
+    for seg in sorted({min(s, top) for s in _SEGS if s <= _SEG}
+                      or {min(_SEG, top)}, reverse=True):
+        strips, segs = strip_items(w, h, lanes, seg, halo)
+        per_round = warps * (32 // lanes)
+        cost = -(-groups * strips * segs // per_round) * (seg // 2 + halo)
+        if best is None or cost < best[0]:
+            best = (cost, seg)
+    return best[1]
+
+
+def _strip_table(table53, halo: int, planes: int, warps, ict_row: int,
+                 ict_groups: int):
+    """A 9/7 stage's (scratch words a plane, rows) from the 5/3 stage's
+    table of the same level windows (``dwt53.fwd_table``/``inv_table``):
+    its scratch, order and columns 1-6, the kind by the 9/7's head rule,
+    and each level's strip lanes and segment rows appended, for
+    ``planes`` planes (``ict_groups`` plane groups at row ``ict_row``)
+    on ``warps`` = (grid warps, block warps)."""
+    _, words, rows53 = table53
+    rows = []
+    for i, row in enumerate(rows53):
+        w, h = row[1], row[2]
+        lanes = strip_lanes(w, halo)
+        head = max(w, h) <= _HEAD_SIDE
+        groups = ict_groups if i == ict_row else planes
+        seg = (_seg_rows(w, h, lanes, halo, 1, warps[1]) if head else
+               _seg_rows(w, h, lanes, halo, groups, warps[0]))
+        rows.append((dwt53.ROW_KINDS["block" if head else "grid"],)
+                    + tuple(row[1:]) + (lanes, seg))
+    return (words, tuple(rows))
+
+
+def _ict_groups(planes: int, comps: int, ict: bool) -> int:
+    """The plane groups of the level that runs the ICT (the kernels'
+    ``gdct::groups``): a frame's components 0-2 are one, each other
+    component one more."""
+    return planes // comps * (comps - 2) if ict else planes
+
+
 def _stage_windows(width: int, height: int, levels: int, x0: int, y0: int):
     """The level windows of a 9/7 stage, finest first, less every 1×1
     window: the 9/7 leaves an axis of one sample as it is, at either
@@ -161,21 +255,50 @@ def _stage_windows(width: int, height: int, levels: int, x0: int, y0: int):
 
 @functools.lru_cache(maxsize=256)
 def fwd97_schedule(width: int, height: int, levels: int, x0: int = 0,
-                   y0: int = 0):
-    """The forward 9/7 of [H, W] planes as csrc/j2k97_fwd_stage.cu runs it:
-    (tile, scratch words a plane, rows), one row a level, finest first, as
-    ``dwt53.fwd_schedule`` (the same tiles, kinds and scratch areas)."""
-    return dwt53.fwd_table(_stage_windows(width, height, levels, x0, y0))
+                   y0: int = 0, planes: int = 1, *, warps, comps: int = 1,
+                   ict: bool = False):
+    """The forward 9/7 of ``planes`` [H, W] planes, frames of ``comps``
+    components (their components 0-2 one plane group at the first level
+    when ``ict``), as csrc/j2k97_fwd_stage.cu runs it on ``warps`` = (grid
+    warps, block warps) (``_kernels.j2k97_fwd_warps``): (scratch words a
+    plane, rows), one row a level, finest first: (kind, w, h, even_x,
+    even_y, in_off, out_off, lanes, seg).
+
+    Each level is one strip pass (csrc/lifting97.cuh) over its window's
+    strips of ``lanes`` lanes and segments of ``seg`` output rows. kind
+    "grid" spreads them over the grid's warps, a grid barrier after the
+    level; "block" (the coarse levels whose window is at most
+    ``_HEAD_SIDE`` samples each way) runs in one block a plane group,
+    with block barriers only. in_off is -1 for the stage's input (the
+    first level), else where the level's w×h input lies in a plane's
+    scratch; out_off is where its LL goes there, -1 for the output (the
+    last level). The scratch is the 5/3 stage's (``dwt53.fwd_table``):
+    two areas in turns, so that no level writes where it reads.
+    """
+    return _strip_table(
+        dwt53.fwd_table(_stage_windows(width, height, levels, x0, y0)),
+        FWD97_HALO, planes, warps, 0, _ict_groups(planes, comps, ict))
 
 
 @functools.lru_cache(maxsize=256)
 def inv97_schedule(width: int, height: int, levels: int, x0: int = 0,
-                   y0: int = 0):
-    """The inverse 9/7 of [H, W] planes as csrc/j2k97_inv_stage.cu runs it:
-    (tile, scratch words a plane, rows), one row a level, coarsest first,
-    as ``dwt53.inv_schedule`` (the same head, grid rows and scratch)."""
-    return dwt53.inv_table(_stage_windows(width, height, levels, x0, y0),
-                           dwt53._HEAD_SAMPLES, dwt53._HEAD_SIDE)
+                   y0: int = 0, planes: int = 1, *, warps, comps: int = 1,
+                   ict: bool = False):
+    """The inverse 9/7 of ``planes`` [H, W] planes as
+    csrc/j2k97_inv_stage.cu runs it on ``warps``
+    (``_kernels.j2k97_inv_warps``; with ``ict``, the inverse ICT at the
+    finest level): (scratch words a plane, rows), one
+    row a level, coarsest first, as ``fwd97_schedule``: the head is the
+    coarsest levels ("block" rows); in_off is -1 where the level's LL lies
+    in the input (the coarsest level), else where the level above wrote
+    it in a plane's scratch; out_off is where the level's w×h
+    reconstruction goes there, -1 for the output (the finest level). The
+    scratch is the 5/3 stage's (``dwt53.inv_table``, whose head arguments
+    give kinds that this table replaces)."""
+    wins = _stage_windows(width, height, levels, x0, y0)
+    return _strip_table(dwt53.inv_table(wins, 0, None), INV97_HALO, planes,
+                        warps, len(wins) - 1, _ict_groups(planes, comps,
+                                                          ict))
 
 
 # ---- multilevel ---------------------------------------------------------------

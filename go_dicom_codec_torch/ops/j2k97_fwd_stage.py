@@ -80,7 +80,9 @@ def _fwd97_stage_kernel(x: torch.Tensor, shift: int, levels: int,
     comps = x.shape[1] if _ict(x, mct) else 1
     out = torch.empty(src.shape, dtype=torch.float32, device=x.device)
     if src.numel():
-        _kernels.j2k97_fwd_stage(src, out, fwd97_schedule(w, h, levels, x0,
-                                                          y0),
-                                 shift, comps, comps >= 3)
+        ict = comps >= 3
+        _kernels.j2k97_fwd_stage(src, out, fwd97_schedule(
+            w, h, levels, x0, y0, src.shape[0],
+            warps=_kernels.j2k97_fwd_warps(src, ict), comps=comps, ict=ict),
+            shift, comps, ict)
     return out.view(x.shape)

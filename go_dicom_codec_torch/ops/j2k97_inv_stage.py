@@ -93,7 +93,9 @@ def _inv97_stage_kernel(x: torch.Tensor, levels: int, x0: int = 0,
              "narrow": torch.int16 if signed else torch.uint16}[epilogue]
     out = torch.empty(src.shape, dtype=dtype, device=x.device)
     if src.numel():
-        _kernels.j2k97_inv_stage(src, out, inv97_schedule(w, h, levels, x0,
-                                                          y0),
-                                 comps, epilogue, mct, bits, signed)
+        ict = comps >= 3 and epilogue != "coeffs"
+        _kernels.j2k97_inv_stage(src, out, inv97_schedule(
+            w, h, levels, x0, y0, src.shape[0],
+            warps=_kernels.j2k97_inv_warps(src, ict), comps=comps, ict=ict),
+            comps, epilogue, mct, bits, signed)
     return out.view(x.shape)

@@ -74,9 +74,14 @@ each ``LONG_SHAPES`` frame the head with and without a bound on its
 sides, ``HEAD|``); then the fused stages at ``LONG_SHAPES``, frames with
 a 65535-sample side (``long_profile``): the 5-level forward and inverse
 in place, the forward stage with the "coeffs" and "narrow" epilogues and
-the narrow decode stage, with the kernel launches of one call. Each stage
-and long line carries its bound: the bytes it must move (input read once,
-outputs written once) over the H100's 3.35 TB/s.
+the narrow decode stage, and the 9/7 forward and narrow decode stages,
+with the kernel launches of one call. Each stage and long line carries
+its bound: the bytes it must move (input read once, outputs written
+once) over the H100's 3.35 TB/s.
+
+``--levels`` prints what each level adds (``LEVELS|``: the 5/3 and 9/7
+stages at 0-5 levels), ``--long`` the long lines alone, ``--stage97`` the
+9/7 stage rows alone at ``--batch`` and at the decode pipeline's chunk.
 
 Usage:
     python -m go_dicom_codec_torch.tools.device_bench [--batch N]
@@ -304,6 +309,12 @@ def _decode_steps(x: torch.Tensor) -> dict:
     return rows
 
 
+def _quantized97(c: torch.Tensor) -> torch.Tensor:
+    """9/7 coefficients quantized and dequantized with ``STEP_97``: the
+    decode stage's input in the bench rows."""
+    return torch.sign(c) * torch.floor(c.abs() / STEP_97) * STEP_97
+
+
 def _stage97_steps(x: torch.Tensor) -> dict:
     """The 9/7 stage rows of gray 12-bit frames and RGB 8-bit frames (as
     many as x holds), forward and decode: {row: ({lane: step}, bound
@@ -318,8 +329,7 @@ def _stage97_steps(x: torch.Tensor) -> dict:
                                ("_rgb", rgb, 8, True)):
         def lanes(a=a, bits=bits, mct=mct):
             shift = 1 << (bits - 1)
-            c = fwd97_stage(a, shift, LEVELS, mct=mct)
-            f = torch.sign(c) * torch.floor(c.abs() / STEP_97) * STEP_97
+            f = _quantized97(fwd97_stage(a, shift, LEVELS, mct=mct))
             dec = (LEVELS, 0, 0, bits, False, mct, "narrow")
             return ({"kernel": lambda: fwd97_stage(a, shift, LEVELS,
                                                    mct=mct),
@@ -564,10 +574,13 @@ def long_steps(seed: int = 0) -> list:
     forward and inverse 5/3 in place on an int32 buffer (a copy and a
     launch each), the forward stage of the int32 samples with the
     "coeffs" epilogue and of uint16 ones with "narrow", and the narrow
-    decode stage of its int16 coefficients, each in the kernel and plain
-    lanes. Each step is a dict of its ``name``, ``shape``, the bytes its
-    bound moves (``bytes``: int32 in and out, 8 a sample; narrow, 4) and
-    its ``kernel`` and ``plain`` calls."""
+    decode stage of its int16 coefficients; the 9/7 forward stage of the
+    uint16 samples and the 9/7 narrow decode stage of its coefficients,
+    quantized with ``STEP_97``; each in the kernel and plain lanes. Each
+    step is a dict of its ``name``, ``shape``, the bytes its bound moves
+    (``bytes``: int32 in and out, 8 a sample; narrow, 4; the 9/7 stages,
+    float32 on one side and uint16 on the other, 6) and its ``kernel``
+    and ``plain`` calls."""
     steps = []
     for shape in LONG_SHAPES:
         x16, pk = _long_frames(shape, seed)
@@ -575,6 +588,8 @@ def long_steps(seed: int = 0) -> list:
         buf = x - 2048
         n = x.numel()
         dec = (LEVELS, 0, 0, 12, False, False, "narrow")
+        g16 = x16[:, None]
+        f = _quantized97(fwd97_stage(g16, 2048, LEVELS))
         for name, nbytes, kernel, plain in (
                 (f"fwd53_{LEVELS}lv_long", 8 * n,
                  lambda b=buf: fwd53_multilevel_(b, LEVELS),
@@ -591,7 +606,13 @@ def long_steps(seed: int = 0) -> list:
                                                epilogue="narrow")),
                 ("j2k_decode_narrow_long", 4 * n,
                  lambda p=pk: istage.inv_stage(p, *dec),
-                 lambda p=pk: istage.inv_stage_plain(p, *dec))):
+                 lambda p=pk: istage.inv_stage_plain(p, *dec)),
+                ("j2k97_fwd_stage_long", 6 * n,
+                 lambda a=g16: fwd97_stage(a, 2048, LEVELS),
+                 lambda a=g16: fwd97_stage_plain(a, 2048, LEVELS)),
+                ("j2k97_inv_stage_long", 6 * n,
+                 lambda c=f: inv97_stage(c, *dec),
+                 lambda c=f: inv97_stage_plain(c, *dec))):
             steps.append({"name": name, "shape": list(shape),
                           "bytes": nbytes, "kernel": kernel, "plain": plain})
     return steps
@@ -623,19 +644,27 @@ def level_profile(batch: int = 32, height: int = 512, width: int = 512,
                   iters: int = 10, seed: int = 0, card: str = "") -> list:
     """What each level adds: the device ms of the fused narrow forward
     stage of ``batch`` gray 12-bit frames, and of the narrow decode stage
-    of its coefficients, at 0 to ``LEVELS`` levels; one line a count."""
+    of its coefficients, then the same of the 9/7 forward stage of those
+    frames as uint16 and of the 9/7 narrow decode stage of its quantized
+    coefficients, at 0 to ``LEVELS`` levels; one line a count."""
     x, _ = _inputs(batch, height, width, seed)
     x16 = x.to(torch.uint16)
+    g16 = x16[:, None]
     card = card or card_info()
     lines = []
     for levels in range(LEVELS + 1):
         pk = fwd_stage(x16, 2048, levels, epilogue="narrow")[0]
+        f = _quantized97(fwd97_stage(g16, 2048, levels))
         lines.append({
             "levels": levels, "batch": batch,
             "fwd_device_ms": device_ms(lambda: fwd_stage(
                 x16, 2048, levels, epilogue="narrow"), iters)[0],
             "inv_device_ms": device_ms(lambda: istage.inv_stage(
                 pk, levels, bits=12, epilogue="narrow"), iters)[0],
+            "fwd97_device_ms": device_ms(lambda: fwd97_stage(
+                g16, 2048, levels), iters)[0],
+            "inv97_device_ms": device_ms(lambda: inv97_stage(
+                f, levels, bits=12, epilogue="narrow"), iters)[0],
             "gpu": card})
     return lines
 
@@ -728,10 +757,18 @@ def main(argv=None) -> int:
                     help="only N pairs of TRACE| windows")
     ap.add_argument("--long", action="store_true",
                     help="only the LONG| lines")
+    ap.add_argument("--stage97", action="store_true",
+                    help="only the 9/7 stage rows' PROFILE| lines, at "
+                         "--batch and at the decode pipeline's chunk")
     opts = ap.parse_args(argv)
     w, h = (int(v) for v in opts.size.split("x"))
     card = card_info()
     print(card)
+    if opts.stage97:
+        for batch in (opts.batch, DECODE_SMALL_BATCH):
+            for r in stage97_profile(batch, h, w, opts.iters, card=card):
+                print("PROFILE|" + json.dumps(r), flush=True)
+        return 0
     if opts.long:
         for r in long_profile(opts.iters, card=card):
             print("LONG|" + json.dumps(r), flush=True)

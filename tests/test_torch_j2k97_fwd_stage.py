@@ -3,18 +3,26 @@
 A numpy model of one csrc/j2k97_fwd_stage.cu launch stands in for the
 kernel here. It takes the launch's arguments (the level table, the
 samples in their type and the shift, the components and the ICT) and runs
-what the kernel runs, tile by tile: each level of the table is a tile pass
-(csrc/lifting97.cuh) over output tiles of the schedule's side, grid rows
-and then the block rows of the coarse levels, each tile loaded with its
-halo of 4 through the symmetric fold into a buffer in the kernel's layout
-(even columns first), lifted by the kernel's steps over the kernel's
-ranges in float32 (each operation rounded once, in the reference's order:
-d + c · (l + r)), scaled by 1/K and K on the tile's rows, and stored at its
-packed place: the LL to the scratch area the row names, the high bands to
-the output. Buffers, scratch and output start as NaN; the model checks
-that every output sample is written once and that no level writes scratch
-it reads. The tile side is cut to 4 samples here, so that small frames
-have many tiles, partial ones and grid rows; 64 is the card's.
+what the kernel runs: each level of the table is a strip pass
+(csrc/lifting97.cuh) over its work items, grid rows and then the block
+rows of the coarse levels. An item is a strip of the row's lanes, each
+lane two pairs of a low column and the high column right of it, and a
+segment of the row's output rows with a halo of 4 through the symmetric
+fold; its rows
+arrive in pairs, the steps along y fire in a rolling window whose state
+starts at 0.0 (every register of the kernel's), each row out of it is
+scaled by 1/K or K and lifted along x lane by lane, a neighbouring lane's
+sample read as the card's shuffles read it (the strip's end lanes their
+own), then scaled by 1/K and K and stored at its packed place: the LL to
+the scratch area the row names, the high bands to the output. Every
+operation is a float32 one, rounded once, in the reference's order (d +
+c · (l + r)). Scratch and output start as NaN; the model checks that every
+output sample is written once and that no level writes scratch it reads.
+The ``geometry`` fixture cuts strips to 4 lanes and segments to 4 rows
+here, so that small frames cross many strip and segment seams, have
+partial items and grid rows; the card's geometry (strips of up to 32
+lanes, segments of up to 64 rows, chosen per level) runs where a test
+asks for it.
 
 Tolerance 0 against the JAX package's op-by-op functions (the DC shift in
 int32, ``ict_forward``, ``fwd97_multilevel``: go_dicom_codec_tpu/ops/
@@ -24,6 +32,7 @@ diagonals and 61×37, every origin parity, levels 0-6; uint16, uint8 and
 float32 (the Part-2 path) samples, the ICT on and off.
 """
 
+import itertools
 import re
 from pathlib import Path
 
@@ -41,9 +50,8 @@ from go_dicom_codec_torch.codecs import jpeg2000 as port_j2k
 from go_dicom_codec_torch.ops import dwt53, dwt97, mct
 from go_dicom_codec_torch.ops import j2k97_fwd_stage as stage
 from test_torch_dwt97 import LARGE, SMALL, _cases
-from test_torch_j2k_fwd_stage import (BLOCK, HOPPER_SMEM, Scratch, fold,
-                                      groups, n_tiles, no_other_kernels,
-                                      phases, xs)
+from test_torch_j2k_fwd_stage import (BLOCK, Scratch, fold, groups,
+                                      no_other_kernels, phases, to_packed)
 
 F32 = np.float32
 CSRC = Path(dwt97.__file__).resolve().parent.parent / "csrc"
@@ -56,99 +64,127 @@ ICT_INV = [F32(c) for c in (mct._ICT_INV_CR, mct._ICT_INV_CB_G,
 INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
 
 
-# ---- the tile pass of csrc/lifting97.cuh, in numpy ---------------------------
+# ---- the strip pass of csrc/lifting97.cuh, in numpy -------------------------
 
-def first_of(p):
-    """gdct97::first_of: the first ext index >= 1 of parity p."""
-    return 1 if p else 2
-
-
-def count_of(n, p):
-    """gdct97::count_of: the positions of parity p in [1, n - 2]."""
-    return (n - first_of(p)) // 2
+# The lifting steps of a side (gdct97::Steps): step i lifts the high
+# samples (i even) or the low ones (i odd).
+FWD_STEPS = (ALPHA, BETA, GAMMA, DELTA)
+INV_STEPS = (F32(0.0), -DELTA, -GAMMA, -BETA, -ALPHA, F32(0.0))
 
 
-class Tile97:
-    """gdct97::Tile: one tile of a w×h window with a halo of ``halo``
-    samples and its nb float32 buffers, which start as NaN."""
+def lift(d, c, l, r):
+    """gdct97::lift: d + c · (l + r), each float32 operation rounded
+    once."""
+    return d + c * (l + r)
 
-    def __init__(self, size, w, h, index, nb, halo):
-        ty, tx = divmod(index, -(-w // size))
-        self.halo = halo
-        self.pitch = size + 2 * halo
-        self.hx = self.pitch // 2
-        self.ty0, self.tx0 = ty * size, tx * size
-        self.tey, self.tex = min(size, h - self.ty0), min(size, w - self.tx0)
-        self.eyn, self.exn = self.tey + 2 * halo, self.tex + 2 * halo
-        self.buf = np.full((nb, self.pitch, self.pitch), np.nan, F32)
 
-    def ext(self, h, w):
-        """The window positions of the ext rows and columns, folded."""
-        return (fold(self.ty0 - self.halo + np.arange(self.eyn), h),
-                fold(self.tx0 - self.halo + np.arange(self.exn), w))
+def shfl_down(v):
+    """__shfl_down_sync(mask, v, 1, lanes) along the last axis, a strip's
+    lanes: lane l gets lane l + 1's value, the last lane its own."""
+    return np.concatenate([v[..., 1:], v[..., -1:]], axis=-1)
 
-    def fill(self, vals):
-        """Ext samples [nb, eyn, exn] into the buffers' layout."""
-        self.buf[:, np.arange(self.eyn)[:, None],
-                 xs(np.arange(self.exn), self.hx)[None, :]] = vals
 
-    def step_y(self, p, c):
-        """The step of parity p along y over every stored column."""
-        first, count = first_of(p), count_of(self.eyn, p)
-        if count <= 0:
+def shfl_up(v):
+    """__shfl_up_sync(mask, v, 1, lanes): lane l gets lane l - 1's value,
+    the first lane its own."""
+    return np.concatenate([v[..., :1], v[..., :-1]], axis=-1)
+
+
+def lift_x(v, steps):
+    """gdct97::lift_x over [..., lanes, 2·pairs] arrays: each lane holds
+    pairs of a low sample (even index) and the high sample right of it, so
+    a high step reads its pair's low sample and the next pair's, the last
+    pair the next lane's first (a shuffle down), and a low step the
+    previous pair's high sample and its own, the first pair the previous
+    lane's last (a shuffle up)."""
+    s, d = v[..., 0::2], v[..., 1::2]
+    for i, c in enumerate(steps):
+        if i % 2 == 0:
+            nxt = shfl_down(s[..., 0])[..., None]
+            d = lift(d, c, s, np.concatenate([s[..., 1:], nxt], axis=-1))
+        else:
+            prv = shfl_up(d[..., -1])[..., None]
+            s = lift(s, c, np.concatenate([prv, d[..., :-1]], axis=-1), d)
+    out = np.empty(np.broadcast_shapes(s.shape, d.shape)[:-1]
+                   + (2 * s.shape[-1],), F32)
+    out[..., 0::2], out[..., 1::2] = s, d
+    return out
+
+
+class Column:
+    """gdct97::Column: the steps along y as a rolling window over a
+    segment's pairs of rows (a low row, the high row below it), every
+    register 0.0 at first. For each pair of steps j it keeps the low row
+    step 2j reads next and the high row it lifts next, and the last high
+    row out; push takes pair q and returns pair q - len(steps) / 2,
+    final."""
+
+    def __init__(self, steps):
+        self.steps, self.m = steps, len(steps) // 2
+        self.s = [F32(0.0)] * self.m
+        self.d = [F32(0.0)] * (self.m + 1)
+
+    def push(self, s_new, d_prev):
+        for j in range(self.m):
+            d_out = lift(self.d[j], self.steps[2 * j], self.s[j], s_new)
+            s_out = lift(self.s[j], self.steps[2 * j + 1], self.d[j + 1],
+                         d_out)
+            self.s[j], self.d[j] = s_new, d_prev
+            s_new, d_prev = s_out, d_out
+        self.d[self.m] = d_prev
+        return s_new, d_prev
+
+
+class Strips:
+    """The work items of one level (gdct97::Items, gdct97::Item): strips
+    of ``lanes`` lanes, lane l holding the 2·pairs window columns from
+    x = xo + 2·pairs·l (low, high, low, ...), xo = the strip's first
+    output column - halo + lo_x, and segments of ``seg`` output rows,
+    pair q their rows yo + 2q (low) and yo + 2q + 1 (high), yo = the
+    segment's first row - halo + lo_y. Column arrays are [items, lanes,
+    2·pairs]; row arrays [items]."""
+
+    def __init__(self, row, halo):
+        _, w, h, even_x, even_y, _, _, lanes, seg = row
+        self.w, self.h, self.lo_x, self.lo_y = w, h, 1 - even_x, 1 - even_y
+        self.snx, self.sny = (w + even_x) >> 1, (h + even_y) >> 1
+        strips, segs = dwt97.strip_items(w, h, lanes, seg, halo)
+        cols = 2 * dwt97._PAIRS
+        out_w = cols * lanes - 2 * halo
+        seg_i, strip = np.divmod(np.arange(strips * segs), strips)
+        x_lo = strip * out_w
+        self.x = ((x_lo - halo + self.lo_x)[:, None, None]
+                  + cols * np.arange(lanes)[None, :, None]
+                  + np.arange(cols)[None, None, :])
+        self.fx = fold(self.x, w)
+        self.x_out = ((self.x >= x_lo[:, None, None])
+                      & (self.x < np.minimum(x_lo + out_w, w)[:, None, None]))
+        self.y_lo = seg_i * seg
+        self.y_hi = np.minimum(self.y_lo + seg, h)
+        self.yo = self.y_lo - halo + self.lo_y
+        self.pairs = seg // 2 + halo
+
+    def out(self, y):
+        """The samples of rows y (one a item) that the level stores."""
+        return ((y >= self.y_lo) & (y < self.y_hi))[:, None, None] \
+            & self.x_out
+
+    def run(self, load, emit, steps):
+        """gdct97::run_item over every item: rows y from load(y, kind)
+        ([nb, items, lanes, 2], finished), through the Column, out to
+        emit(y, v, kind). A window one row high goes through as it is."""
+        zero = np.zeros_like(self.y_lo)
+        if self.h == 1:
+            emit(zero, load(zero, "only"), "only")
             return
-        y = first + 2 * np.arange(count)
-        b = self.buf
-        b[:, y] = b[:, y] + c * (b[:, y - 1] + b[:, y + 1])
-
-    def step_x(self, p, c, y_lo, y_hi):
-        """The step of parity p along x over rows [y_lo, y_hi)."""
-        first, count = first_of(p), count_of(self.exn, p)
-        if count <= 0:
-            return
-        e = first + 2 * np.arange(count)
-        r, b, hx = slice(y_lo, y_hi), self.buf, self.hx
-        b[:, r, xs(e, hx)] = b[:, r, xs(e, hx)] + c * (
-            b[:, r, xs(e - 1, hx)] + b[:, r, xs(e + 1, hx)])
-
-    def scale(self, by_x, lo, low, high, y_lo, y_hi):
-        """gdct97::scale: low × ``low``, high × ``high`` in rows
-        [y_lo, y_hi) of every stored column."""
-        parity = ((np.arange(self.pitch) >= self.hx)[None, :] if by_x
-                  else (np.arange(y_lo, y_hi) & 1)[:, None])
-        f = np.where(parity == lo, low, high).astype(F32)
-        self.buf[:, y_lo:y_hi] = self.buf[:, y_lo:y_hi] * f
-
-    def fwd_lift(self, lo_x, lo_y, w, h):
-        """gdct97::fwd_lift."""
-        y_lo, y_hi = self.halo, self.halo + self.tey
-        if h > 1:
-            for p, c in ((1 - lo_y, ALPHA), (lo_y, BETA), (1 - lo_y, GAMMA),
-                         (lo_y, DELTA)):
-                self.step_y(p, c)
-            self.scale(False, lo_y, INV_K, K, y_lo, y_hi)
-        if w > 1:
-            for p, c in ((1 - lo_x, ALPHA), (lo_x, BETA), (1 - lo_x, GAMMA),
-                         (lo_x, DELTA)):
-                self.step_x(p, c, y_lo, y_hi)
-            self.scale(True, lo_x, INV_K, K, y_lo, y_hi)
-
-    def inv_lift(self, lo_x, lo_y, w, h):
-        """gdct97::inv_lift: the reference's six steps a side, the two of
-        coefficient 0.0 among them."""
-        zero = F32(0.0)
-        if w > 1:
-            self.scale(True, lo_x, K, INV_K, 0, self.eyn)
-            for p, c in ((1 - lo_x, zero), (lo_x, -DELTA),
-                         (1 - lo_x, -GAMMA), (lo_x, -BETA),
-                         (1 - lo_x, -ALPHA), (lo_x, zero)):
-                self.step_x(p, c, 0, self.eyn)
-        if h > 1:
-            self.scale(False, lo_y, K, INV_K, 0, self.eyn)
-            for p, c in ((1 - lo_y, zero), (lo_y, -DELTA),
-                         (1 - lo_y, -GAMMA), (lo_y, -BETA),
-                         (1 - lo_y, -ALPHA), (lo_y, zero)):
-                self.step_y(p, c)
+        col = Column(steps)
+        m = len(steps) // 2
+        for q in range(self.pairs):
+            y = self.yo + 2 * q
+            lo, hi = col.push(load(y, "low"), load(y + 1, "high"))
+            if q >= m:
+                emit(y - 2 * m, lo, "low")
+                emit(y - 2 * m + 1, hi, "high")
 
 
 class Scratch97(Scratch):
@@ -177,7 +213,7 @@ def widen(x, shift):
 def fwd97_launch_model(x, shift, schedule, comps, ict):
     """One launch of csrc/j2k97_fwd_stage.cu on samples x [P, H, W]: the
     float32 coefficients, each written once."""
-    tile, words, rows = schedule
+    words, rows = schedule
     p, h, w = x.shape
     frames = p // comps
     out = np.full((p, h, w), np.nan, F32)
@@ -195,51 +231,47 @@ def fwd97_launch_model(x, shift, schedule, comps, ict):
             g3 = ict and r0 == 0
             for plane0, nb in groups(frames, comps, g3):
                 for ri in range(r0, r1):
-                    for t in range(n_tiles(rows[ri], tile)):
-                        fwd97_tile_model(rows[ri], ri, tile, t, plane0, nb,
-                                         g3, wide, out, count, scr)
+                    fwd97_level_model(rows[ri], ri, plane0, nb, g3, wide,
+                                      out, count, scr)
     scr.check()
     assert (count == 1).all(), "an output sample is not written once"
     return out
 
 
-def fwd97_tile_model(row, ri, size, index, plane0, nb, g3, wide, out, count,
-                     scr):
-    """csrc/j2k97_fwd_stage.cu::fwd_tile."""
-    _, w, h, even_x, even_y, in_off, out_off = row
-    lo_x, lo_y = 1 - even_x, 1 - even_y
-    halo = _kernels.FWD97_HALO
-    t = Tile97(size, w, h, index, nb, halo)
-    qy, qx = t.ext(h, w)
-    planes = plane0 + np.arange(nb)
-    if in_off < 0:
-        vals = wide[planes[:, None, None], qy[None, :, None],
-                    qx[None, None, :]]
-        if g3 and nb == 3:
-            vals = np.stack(ict_fwd(*vals))
-    else:
-        vals = scr.read(ri, scr.at(planes[:, None, None], in_off,
-                                   qy[None, :, None], qx[None, None, :], w))
-    t.fill(vals)
-    t.fwd_lift(lo_x, lo_y, w, h)
-    snx, sny = (w + even_x) >> 1, (h + even_y) >> 1
-    nlx, nly = (t.tex + 1 - lo_x) >> 1, (t.tey + 1 - lo_y) >> 1
-    oy, ox = np.arange(t.tey), np.arange(t.tex)
-    low_y, low_x = oy < nly, ox < nlx
-    oy, ox = np.where(low_y, oy, oy - nly), np.where(low_x, ox, ox - nlx)
-    by = np.where(low_y, lo_y, 1 - lo_y) + halo + 2 * oy
-    bx = np.where(low_x, lo_x, 1 - lo_x) * t.hx + halo // 2 + ox
-    py = np.where(low_y, 0, sny) + t.ty0 // 2 + oy
-    px = np.where(low_x, 0, snx) + t.tx0 // 2 + ox
-    vals = t.buf[:, by[:, None], bx[None, :]]
-    ll = (low_y[:, None] & low_x[None, :]) & (out_off >= 0)
-    py, px = np.broadcast_to(py[:, None], ll.shape), \
-        np.broadcast_to(px[None, :], ll.shape)
-    for k, plane in enumerate(planes):
-        scr.write(ri, scr.at(plane, out_off, py[ll], px[ll], snx),
-                  vals[k][ll])
-        out[plane, py[~ll], px[~ll]] = vals[k][~ll]
-        count[plane, py[~ll], px[~ll]] += 1
+def fwd97_level_model(row, ri, plane0, nb, g3, wide, out, count, scr):
+    """csrc/j2k97_fwd_stage.cu::fwd_level for one plane group: every item
+    of level ``ri`` (In::load and finish, run_item, Out)."""
+    _, w, h, even_x, even_y, in_off, out_off, lanes, seg = row
+    st = Strips(row, _kernels.FWD97_HALO)
+    planes = (plane0 + np.arange(nb))[:, None, None, None]
+
+    def load(y, kind):
+        fy = fold(y, h)[None, :, None, None]
+        if in_off >= 0:
+            return scr.read(ri, scr.at(planes, in_off, fy, st.fx[None], w))
+        v = wide[planes, fy, st.fx[None]]
+        return np.stack(ict_fwd(*v)) if g3 and nb == 3 else v
+
+    def emit(y, v, kind):
+        if kind != "only":
+            v = v * (INV_K if kind == "low" else K)
+        if w > 1:
+            v = lift_x(v, FWD_STEPS)
+            v[..., 0::2] *= INV_K
+            v[..., 1::2] *= K
+        keep = st.out(y)
+        py = np.broadcast_to(to_packed(y, st.sny, st.lo_y)[:, None, None],
+                             keep.shape)[keep]
+        px = to_packed(st.x, st.snx, st.lo_x)[keep]
+        ll = (py < st.sny) & (px < st.snx) & (out_off >= 0)
+        for k in range(nb):
+            plane, vals = plane0 + k, v[k][keep]
+            scr.write(ri, scr.at(plane, out_off, py[ll], px[ll], st.snx),
+                      vals[ll])
+            out[plane, py[~ll], px[~ll]] = vals[~ll]
+            count[plane, py[~ll], px[~ll]] += 1
+
+    st.run(load, emit, FWD_STEPS)
 
 
 def _fwd97_model(launches):
@@ -251,11 +283,9 @@ def _fwd97_model(launches):
         assert out.dtype == torch.float32 and out.shape == src.shape
         assert out.data_ptr() != src.data_ptr()
         assert src.dtype != torch.float32 or shift == 0
-        tile, _, rows = schedule
         ict = mct and comps >= 3
-        assert len(rows) <= _kernels.STAGE_MAX_ROWS
-        assert _kernels.stage97_smem_bytes(tile, _kernels.FWD97_HALO,
-                                           ict) <= HOPPER_SMEM
+        _kernels._stage97_plane("j2k97_fwd_stage", *src.shape[1:], schedule,
+                                _kernels.FWD97_HALO)
         launches.append("coeffs")
         out.copy_(torch.as_tensor(fwd97_launch_model(
             src.numpy(), shift, schedule, comps, ict)))
@@ -268,18 +298,44 @@ def clear_tables():
         fn.cache_clear()
 
 
-@pytest.fixture(params=[4])
-def tile(request, monkeypatch):
-    """The stages' tile side in samples; the 5/3's and 9/7's schedules
-    are built anew, and the caches hold none of them after the test."""
-    monkeypatch.setattr(dwt53, "_TILE", request.param)
+# The strip geometries of the tests: (lanes a strip at most, rows a
+# segment at most). "small" gives strips of 4 lanes, 8 output columns
+# forward and 4 inverse, and segments of 4 rows, so that small frames
+# cross many strip and segment seams; "card" is the card's
+# (ops/dwt97.py).
+GEOMETRIES = {"small": (4, 4), "card": (dwt97._LANES, dwt97._SEG)}
+# (grid warps, block warps) of the stage kernels on an H100, as
+# ``_kernels.j2k97_fwd_warps``/``j2k97_inv_warps`` measure them there: 132
+# SMs × 2 blocks of 8 warps (``__launch_bounds__(256, 2)``), the ICT
+# kernels 1 block (``(256, 1)``); the tables the models run are sized for
+# them.
+H100_WARPS = {False: (132 * 16, 8), True: (132 * 8, 8)}
+
+
+def card_warps(monkeypatch):
+    """``_kernels.j2k97_fwd_warps``/``j2k97_inv_warps`` report the H100's
+    ``H100_WARPS`` for CPU tensors (they need the card)."""
+    for name in ("j2k97_fwd_warps", "j2k97_inv_warps"):
+        monkeypatch.setattr(_kernels, name,
+                            lambda src, ict=False: H100_WARPS[bool(ict)])
+
+
+@pytest.fixture(params=["small"])
+def geometry(request, monkeypatch):
+    """The 9/7 stages' strip geometry (``GEOMETRIES``) on the H100's warps
+    (``card_warps``); the schedules are built anew, and the caches hold
+    none of them after the test."""
+    lanes, seg = GEOMETRIES[request.param]
+    monkeypatch.setattr(dwt97, "_LANES", lanes)
+    monkeypatch.setattr(dwt97, "_SEG", seg)
+    card_warps(monkeypatch)
     clear_tables()
     yield request.param
     clear_tables()
 
 
 @pytest.fixture
-def kernel_lane(monkeypatch, tile):
+def kernel_lane(monkeypatch, geometry):
     """The 9/7 forward stage's kernel lane on CPU tensors, through the
     model, for the stage, the codec's tile transform and
     ``fwd97_multilevel``; no other kernel may launch. Yields the
@@ -347,13 +403,13 @@ def test_stage_bit_exact_over_the_covering(shape, x0, y0, levels,
 
 
 @pytest.mark.parametrize("shape,x0,y0,levels", _cases(LARGE))
-@pytest.mark.parametrize("tile", [64], indirect=True)
+@pytest.mark.parametrize("geometry", ["card"], indirect=True)
 def test_stage_bit_exact_at_the_cards_tile(shape, x0, y0, levels,
                                            kernel_lane, rng):
-    """61×37 at every level at the card's tile side (one tile a level,
-    block rows only): 12-bit uint16 gray frames and the ICT of RGB,
-    against the plain version, which the covering holds to the JAX
-    package."""
+    """61×37 at every level at the card's strip geometry (two strips
+    across, segments of 32 rows and fewer): 12-bit uint16 gray frames and
+    the ICT of RGB, against the plain version, which the covering holds
+    to the JAX package."""
     x = torch.as_tensor(rng.integers(0, 4096, (2, 3) + shape)
                         .astype(np.uint16))
     for t, mct_on in ((x, True), (x[:, :1], False)):
@@ -402,6 +458,28 @@ def test_signed_zero_and_saturation_inputs(kernel_lane):
         bits_equal(stage.fwd97_stage_plain(t, 0, levels, mct=True).numpy(),
                    want)
     assert kernel_lane == ["coeffs"] * 3
+
+
+# special float32 values, one a frame in the seam tests
+SPECIAL = (0.0, -0.0, np.inf, -np.inf, np.nan, 3e9, -3e9, 2.5)
+
+
+@pytest.mark.parametrize("x0,y0", [(0, 0), (1, 1), (1, 0), (0, 1)])
+def test_strip_and_segment_seams(x0, y0, kernel_lane, rng):
+    """Frames of 19×21 float32 samples at the tests' geometry (strips of 8
+    output columns, segments of 4 rows: seams at columns 8 and 16 and at
+    every fourth row of the first level, and of the coarser ones), each
+    with one of ±0, ±inf, NaN, ±3e9 on a strip seam, a segment seam and
+    the window's last sample, at 3 levels: the model, the plain version
+    and the JAX package agree bit for bit."""
+    x = rng.uniform(-2048, 2048, (len(SPECIAL), 1, 19, 21)).astype(F32)
+    for i, v in enumerate(SPECIAL):
+        x[i, 0, 5, 8] = x[i, 0, 8, 15] = x[i, 0, -1, -1] = v
+    want = np.asarray(ref_dwt97.fwd97_multilevel(jnp.asarray(x), 3, x0, y0))
+    t = torch.as_tensor(x)
+    bits_equal(stage._fwd97_stage_kernel(t, 0, 3, x0, y0).numpy(), want)
+    bits_equal(stage.fwd97_stage_plain(t, 0, 3, x0, y0).numpy(), want)
+    assert kernel_lane == ["coeffs"]
 
 
 def test_stage_widens_each_dtype(kernel_lane, rng):
@@ -511,31 +589,117 @@ def test_part2_lossy_registry_encode_through_the_model(kernel_lane,
 # ---- tables, constants, lanes ------------------------------------------------
 
 def test_tables_drop_one_sample_windows():
-    """The 9/7 tables are the 5/3's, less every 1×1 window (at either
-    parity: the 9/7 leaves a side of one as it is)."""
-    assert dwt97.fwd97_schedule(512, 512, 5) == dwt53.fwd_schedule(512, 512,
-                                                                   5)
-    assert dwt97.inv97_schedule(512, 512, 5) == dwt53.inv_schedule(512, 512,
-                                                                   5)
-    assert dwt97.fwd97_schedule(1, 1, 3, 1, 1) == (64, 0, ())
+    """The 9/7 tables have the 5/3's windows, parities and scratch, less
+    every 1×1 window (at either parity: the 9/7 leaves a side of one as
+    it is), and a strip geometry a level."""
+    gray = H100_WARPS[False]
+    for f97, f53 in ((dwt97.fwd97_schedule, dwt53.fwd_schedule),
+                     (dwt97.inv97_schedule, dwt53.inv_schedule)):
+        words, rows = f97(512, 512, 5, warps=gray)
+        assert words == f53(512, 512, 5)[1]
+        assert [r[1:7] for r in rows] == [r[1:7] for r in
+                                          f53(512, 512, 5)[2]]
+    assert dwt97.fwd97_schedule(1, 1, 3, 1, 1, warps=gray) == (0, ())
     assert dwt53.fwd_schedule(1, 1, 3, 1, 1)[2]    # the 5/3's ×2 rule
-    rows = dwt97.inv97_schedule(1, 5, 3, 1, 1)[2]
+    rows = dwt97.inv97_schedule(1, 5, 3, 1, 1, warps=gray)[1]
     assert [r[:5] for r in rows] == [(BLOCK, 1, 5, 0, 0)]
     for w in range(1, 10):
         for h in range(1, 10):
             for x0, y0 in ((0, 0), (1, 1), (1, 0)):
-                for sched in (dwt97.fwd97_schedule(w, h, 6, x0, y0),
-                              dwt97.inv97_schedule(w, h, 6, x0, y0)):
-                    assert all(r[1:3] != (1, 1) for r in sched[2])
+                for fn in (dwt97.fwd97_schedule, dwt97.inv97_schedule):
+                    sched = fn(w, h, 6, x0, y0, warps=gray)
+                    assert all(r[1:3] != (1, 1) for r in sched[1])
+
+
+@pytest.mark.parametrize("warps", [H100_WARPS[False], H100_WARPS[True],
+                                   (96, 4)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_strip_geometry_of_the_tables(inverse, warps):
+    """Each level's strips are the fewest lanes (8, 16 or 32) whose
+    4·lanes - 2·halo output columns (two pairs a lane) cover its width,
+    at most 32; the head ("block" rows) is the levels at most 64 samples
+    each way; its segments the height of 64, 32, 16, 8 or 4 rows (at most
+    the window's, rounded up to even) whose rounds of items over the
+    kernel's ``warps`` (grid warps: every plane group, a plane each but
+    a frame's components 0-2 one at the level that runs the ICT, the
+    forward's first and the inverse's last; the head: one plane group
+    over a block's warps) times its chain of S/2 + halo pairs is the
+    least, the tallest of equals; the kernel's checks pass."""
+    fn = dwt97.inv97_schedule if inverse else dwt97.fwd97_schedule
+    halo = _kernels.INV97_HALO if inverse else _kernels.FWD97_HALO
+    assert _kernels.STRIP_PAIRS == dwt97._PAIRS == 2
+    for (w, h), frames, (comps, ict) in itertools.product(
+            ((512, 512), (65535, 16), (16, 65535), (61, 37), (7, 3)),
+            (1, 8, 32), ((1, False), (3, True), (4, True), (3, False))):
+        planes = frames * comps
+        words, rows = fn(w, h, 5, 0, 0, planes, warps=warps, comps=comps,
+                         ict=ict)
+        _kernels._stage97_plane("stage", h, w, (words, rows), halo)
+        ict_row = len(rows) - 1 if inverse else 0
+        for i, (kind, lw, lh, *_, lanes, seg) in enumerate(rows):
+            assert lanes == min(l for l in (8, 16, 32)
+                                if 4 * l - 2 * halo >= lw or l == 32)
+            assert (kind == BLOCK) == (max(lw, lh) <= 64)
+            grid = frames * (comps - 2) if ict and i == ict_row else planes
+            groups, n = (1, warps[1]) if kind == BLOCK else (grid, warps[0])
+
+            def cost(s):
+                strips, segs = -(-lw // (4 * lanes - 2 * halo)), -(-lh // s)
+                rounds = -(-groups * strips * segs // (n * 32 // lanes))
+                return rounds * (s // 2 + halo)
+            heights = sorted({min(s, lh + lh % 2) for s in (64, 32, 16, 8, 4)},
+                             reverse=True)
+            assert seg == min(heights, key=cost)
+    if warps == H100_WARPS[True]:    # 8 RGB frames with the ICT
+        assert [r[7:] for r in dwt97.fwd97_schedule(
+            512, 512, 5, 0, 0, 24, warps=warps, comps=3, ict=True)[1]] == [
+            (32, 32), (32, 32), (32, 8), (32, 8), (16, 4)]
+        assert [r[7:] for r in dwt97.inv97_schedule(
+            512, 512, 5, 0, 0, 24, warps=warps, comps=3, ict=True)[1]] == [
+            (16, 4), (32, 8), (32, 8), (32, 32), (32, 32)]
+    if warps != H100_WARPS[False]:
+        return
+    assert [r[0:1] + r[7:] for r in dwt97.fwd97_schedule(
+        512, 512, 5, 0, 0, 32, warps=warps)[1]] == [
+        (0, 32, 64), (0, 32, 16), (0, 32, 4), (BLOCK, 32, 8),
+        (BLOCK, 16, 4)]
+    assert [r[7:] for r in dwt97.inv97_schedule(
+        512, 512, 5, 0, 0, 8, warps=warps)[1]
+            ] == [(16, 4), (32, 8), (32, 4), (32, 4), (32, 16)]
+    assert [r[7] for r in dwt97.fwd97_schedule(16, 65535, 5,
+                                               warps=warps)[1]] == [
+        8, 8, 8, 8, 8]
+    assert [r[7] for r in dwt97.inv97_schedule(65535, 16, 5,
+                                               warps=warps)[1]] == [
+        32, 32, 32, 32, 32]
+
+
+@pytest.mark.parametrize("bad", [
+    lambda r: r[:7] + (2, 32),          # lanes not 4, 8, 16 or 32
+    lambda r: r[:7] + (32, 7),          # odd segments
+    lambda r: r[:7] + (32, 0),
+    lambda r: r[:8],                    # a row of 8 columns
+])
+def test_strip_table_refuses_bad_rows(bad):
+    words, rows = dwt97.fwd97_schedule(61, 37, 2, warps=H100_WARPS[False])
+    rows = (bad(rows[0]),) + rows[1:]
+    with pytest.raises(_kernels.KernelLaunchError):
+        _kernels._stage97_plane("j2k97_fwd_stage", 37, 61, (words, rows),
+                                _kernels.FWD97_HALO)
 
 
 def test_shared_memory_and_constants():
-    """A block's buffers fit Hopper's shared memory (three with the ICT,
-    halos of 4 and 6 at tiles of 64), and csrc/lifting97.cuh's constants
-    are the float32 roundings of the port's (and the reference's)."""
-    assert _kernels.stage97_smem_bytes(64, 4, True) == 3 * 72 * 72 * 4
-    assert _kernels.stage97_smem_bytes(64, 6, True) == 3 * 76 * 76 * 4
-    assert _kernels.stage97_smem_bytes(64, 6, True) <= HOPPER_SMEM // 2
+    """The strip pass keeps everything in registers and shuffles: no
+    shared memory and no block barrier inside a level in either stage
+    (a block barrier only between the head's levels), and
+    csrc/lifting97.cuh's constants are the float32 roundings of the
+    port's (and the reference's)."""
+    for name in ("lifting97.cuh", "j2k97_fwd_stage.cu",
+                 "j2k97_inv_stage.cu"):
+        code = re.sub(r"//.*", "", (CSRC / name).read_text())
+        assert "__shared__" not in code and "extern __shared" not in code
+        assert code.count("__syncthreads()") == (0 if name.endswith("cuh")
+                                                 else 1)
     src = (CSRC / "lifting97.cuh").read_text()
     consts = {name: F32(float.fromhex(v)) for name, v in re.findall(
         r"(k\w+) = (-?0x[0-9a-f.]+p[-+]\d+)f", src)}
@@ -563,4 +727,7 @@ def test_stage_lanes_by_device():
     x3 = torch.zeros((3, 8, 8), dtype=torch.float32)
     with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
         _kernels.j2k97_fwd_stage(x3, x3.clone(),
-                                 dwt97.fwd97_schedule(8, 8, 2), 0)
+                                 dwt97.fwd97_schedule(
+                                     8, 8, 2, warps=H100_WARPS[False]), 0)
+    with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
+        _kernels.j2k97_fwd_warps(x3)

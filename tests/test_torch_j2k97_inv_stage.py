@@ -3,19 +3,23 @@
 A numpy model of one csrc/j2k97_inv_stage.cu launch stands in for the
 kernel here. It takes the launch's arguments (the level table with its
 head, the epilogue, the components and the ICT) and runs what the kernel
-runs, tile by tile (csrc/lifting97.cuh, modelled in
-test_torch_j2k97_fwd_stage): each level, coarsest first, loads the packed
-coefficients of its tile and a halo of 6 through the symmetric fold — the
-LL from the scratch area the level above wrote (the coarsest level's from
-the input), the high bands from the input — scales by K and 1/K and
-undoes the row and then the column lifting, the reference's six steps a
-side (two of coefficient 0.0), each float32 operation rounded once, and
-stores the tile interleaved: to scratch, or at the finest level through
-the epilogue (the inverse ICT of a group of components 0-2, round half to
-even saturating as the reference's cast, unshift, clip and 16-bit cast).
-Scratch and output start as NaN; the model checks that every output
-sample is written once and that no level writes scratch it reads. Tiles
-of 4 samples (64 on the card).
+runs, item by item (csrc/lifting97.cuh's strip pass, modelled in
+test_torch_j2k97_fwd_stage): each level, coarsest first, loads the rows of
+each strip and segment with a halo of 6 through the symmetric fold, a
+lane's low and high columns from the packed row's low and high halves —
+the LL from the scratch area the level above wrote (the coarsest level's
+from the input), the high bands from the input —, scales each row by K
+and 1/K and undoes its lifting along x at once, lane by lane through the
+card's shuffles, the reference's six steps (two of coefficient 0.0), then
+scales it by K or 1/K along y and undoes the column lifting in a rolling
+window over the segment's pairs of rows, each float32 operation rounded
+once; each row out of it is stored interleaved: to scratch, or at the
+finest level through the epilogue (the inverse ICT of a group of
+components 0-2, round half to even saturating as the reference's cast,
+unshift, clip and 16-bit cast). Scratch and output start as NaN; the
+model checks that every output sample is written once and that no level
+writes scratch it reads. Strips of 4 lanes and segments of 4 rows (on the
+card up to 32 lanes and 64 rows, chosen per level).
 
 Tolerance 0 against the JAX package's op-by-op ``inv97_multilevel``
 (go_dicom_codec_tpu/ops/dwt97.py:130), ``ict_inverse``, ``jnp.round``,
@@ -45,11 +49,13 @@ from go_dicom_codec_torch.ops import dwt97
 from go_dicom_codec_torch.ops import j2k97_inv_stage as stage
 from go_dicom_codec_torch.ops.j2k97_fwd_stage import fwd97_stage_plain
 from test_torch_dwt97 import LARGE, SMALL, _cases
-from test_torch_j2k97_fwd_stage import (F32, ICT_INV, INT32_MAX, INT32_MIN,
-                                        Scratch97, Tile97, bits_equal, tile)
-from test_torch_j2k_fwd_stage import (HOPPER_SMEM, groups, n_tiles,
-                                      no_other_kernels, phases, to_packed,
-                                      xs)
+from test_torch_j2k97_fwd_stage import (F32, H100_WARPS, ICT_INV,
+                                        INT32_MAX, INT32_MIN, INV_K,
+                                        INV_STEPS, K, SPECIAL, Scratch97,
+                                        Strips, bits_equal, card_warps,
+                                        geometry, lift_x)
+from test_torch_j2k_fwd_stage import (fold, groups, no_other_kernels,
+                                      phases, to_packed)
 
 CPU = torch.device("cpu")
 
@@ -65,7 +71,7 @@ def inv97_launch_model(x, schedule, comps, ict):
     """One launch of csrc/j2k97_inv_stage.cu on float32 coefficients x
     [P, H, W]: the finest level's reconstruction after the inverse ICT,
     float32, each sample written once."""
-    tile_side, words, rows = schedule
+    words, rows = schedule
     p, h, w = x.shape
     frames = p // comps
     rec = np.full((p, h, w), np.nan, F32)
@@ -82,47 +88,54 @@ def inv97_launch_model(x, schedule, comps, ict):
             g3 = ict and r1 == len(rows)
             for plane0, nb in groups(frames, comps, g3):
                 for ri in range(r0, r1):
-                    for t in range(n_tiles(rows[ri], tile_side)):
-                        inv97_tile_model(rows[ri], ri, tile_side, t, plane0,
-                                         nb, g3, x, rec, count, scr)
+                    inv97_level_model(rows[ri], ri, plane0, nb, g3, x, rec,
+                                      count, scr)
     scr.check()
     assert (count == 1).all(), "an output sample is not written once"
     return rec
 
 
-def inv97_tile_model(row, ri, size, index, plane0, nb, g3, x, rec, count,
-                     scr):
-    """csrc/j2k97_inv_stage.cu::inv_tile."""
-    _, w, h, even_x, even_y, in_off, out_off = row
-    lo_x, lo_y = 1 - even_x, 1 - even_y
-    snx, sny = (w + even_x) >> 1, (h + even_y) >> 1
-    halo = _kernels.INV97_HALO
-    t = Tile97(size, w, h, index, nb, halo)
-    qy, qx = t.ext(h, w)
-    py, px = to_packed(qy, sny, lo_y), to_packed(qx, snx, lo_x)
-    planes = plane0 + np.arange(nb)
-    vals = x[planes[:, None, None], py[None, :, None], px[None, None, :]]
-    ll = (py[:, None] < sny) & (px[None, :] < snx)
-    if in_off >= 0 and ll.any():
-        yy, xx = np.broadcast_to(py[:, None], ll.shape)[ll], \
-            np.broadcast_to(px[None, :], ll.shape)[ll]
-        for k, plane in enumerate(planes):
-            vals[k][ll] = scr.read(ri, scr.at(plane, in_off, yy, xx, snx))
-    t.fill(vals)
-    t.inv_lift(lo_x, lo_y, w, h)
-    oy, ox = np.arange(t.tey), np.arange(t.tex)
-    out = t.buf[:, halo + oy[:, None], xs(halo + ox, t.hx)[None, :]]
-    qy, qx = np.broadcast_to(t.ty0 + oy[:, None], out.shape[1:]), \
-        np.broadcast_to(t.tx0 + ox[None, :], out.shape[1:])
-    if out_off >= 0:
-        for k, plane in enumerate(planes):
-            scr.write(ri, scr.at(plane, out_off, qy, qx, w), out[k])
-        return
-    if g3 and nb == 3:
-        out = np.stack(ict_inv(*out))
-    for k, plane in enumerate(planes):
-        rec[plane, qy, qx] = out[k]
-        count[plane, qy, qx] += 1
+def inv97_level_model(row, ri, plane0, nb, g3, x, rec, count, scr):
+    """csrc/j2k97_inv_stage.cu::inv_level for one plane group: every item
+    of level ``ri`` (Packed::load and finish, run_item, Recon)."""
+    _, w, h, even_x, even_y, in_off, out_off, lanes, seg = row
+    st = Strips(row, _kernels.INV97_HALO)
+    planes = (plane0 + np.arange(nb))[:, None, None, None]
+    px = to_packed(st.fx, st.snx, st.lo_x)
+
+    def load(y, kind):
+        py = np.broadcast_to(to_packed(fold(y, h), st.sny,
+                                       st.lo_y)[:, None, None], px.shape)
+        v = x[planes, py[None], px[None]]
+        ll = (py < st.sny) & (px < st.snx)
+        if in_off >= 0 and ll.any():
+            v[:, ll] = scr.read(ri, scr.at(planes[:, :, 0, 0], in_off,
+                                           py[ll][None], px[ll][None],
+                                           st.snx))
+        if w > 1:
+            v[..., 0::2] *= K
+            v[..., 1::2] *= INV_K
+            v = lift_x(v, INV_STEPS)
+        if kind != "only":
+            v = v * (K if kind == "low" else INV_K)
+        return v
+
+    def emit(y, v, kind):
+        keep = st.out(y)
+        qy = np.broadcast_to(y[:, None, None], keep.shape)[keep]
+        qx = st.x[keep]
+        out = v[:, keep]
+        if out_off >= 0:
+            for k in range(nb):
+                scr.write(ri, scr.at(plane0 + k, out_off, qy, qx, w), out[k])
+            return
+        if g3 and nb == 3:
+            out = np.stack(ict_inv(*out))
+        for k in range(nb):
+            rec[plane0 + k, qy, qx] = out[k]
+            count[plane0 + k, qy, qx] += 1
+
+    st.run(load, emit, INV_STEPS)
 
 
 def epilogue_model(rec, epilogue, bits, signed):
@@ -154,11 +167,9 @@ def _inv97_model(launches):
         assert out.dtype == {"coeffs": torch.float32, "pixels": torch.int32,
                              "narrow": torch.int16 if signed
                              else torch.uint16}[epilogue]
-        tile_side, _, rows = schedule
         ict = mct and epilogue != "coeffs" and comps >= 3
-        assert len(rows) <= _kernels.STAGE_MAX_ROWS
-        assert _kernels.stage97_smem_bytes(tile_side, _kernels.INV97_HALO,
-                                           ict) <= HOPPER_SMEM
+        _kernels._stage97_plane("j2k97_inv_stage", *src.shape[1:], schedule,
+                                _kernels.INV97_HALO)
         launches.append(epilogue)
         rec = inv97_launch_model(src.numpy(), schedule, comps, ict)
         out.copy_(torch.as_tensor(epilogue_model(rec, epilogue, bits,
@@ -167,7 +178,7 @@ def _inv97_model(launches):
 
 
 @pytest.fixture
-def kernel_lane(monkeypatch, tile):
+def kernel_lane(monkeypatch, geometry):
     """The 9/7 decode stage's kernel lane on CPU tensors, through the
     model, for the stage, the pipelines' stage, the scalar decoder's
     branches and ``inv97_multilevel``; no other kernel may launch. Yields
@@ -251,10 +262,10 @@ def test_stage_bit_exact_over_the_covering(shape, x0, y0, levels,
 
 
 @pytest.mark.parametrize("shape,x0,y0,levels", _cases(LARGE))
-@pytest.mark.parametrize("tile", [64], indirect=True)
+@pytest.mark.parametrize("geometry", ["card"], indirect=True)
 def test_stage_bit_exact_at_the_cards_tile(shape, x0, y0, levels,
                                            kernel_lane, rng):
-    """61×37 at every level at the card's tile side, in all three
+    """61×37 at every level at the card's strip geometry, in all three
     epilogues, against the plain version, which the covering holds to the
     JAX package."""
     t = torch.as_tensor(_coefficients(rng, shape, levels, x0, y0))
@@ -306,6 +317,26 @@ def test_saturation_and_signed_zero(mct_on, kernel_lane):
                 _eq(stage._inv97_stage_kernel(t, *args).numpy(), want)
                 _eq(stage.inv97_stage_plain(t, *args).numpy(), want)
     assert len(kernel_lane) == 18
+
+
+@pytest.mark.parametrize("x0,y0", [(0, 0), (1, 1), (1, 0), (0, 1)])
+def test_strip_and_segment_seams(x0, y0, kernel_lane, rng):
+    """Coefficients of 19×21 frames at the tests' geometry (strips of 4
+    output columns, segments of 4 rows: many seams a level), each frame
+    with one of ±0, ±inf, NaN, ±3e9 on a strip seam, a segment seam and
+    the last sample, at 3 levels, "coeffs" and "pixels": the model, the
+    plain version and the JAX package agree bit for bit."""
+    c = rng.uniform(-3000, 3000, (len(SPECIAL), 1, 19, 21)).astype(F32)
+    for i, v in enumerate(SPECIAL):
+        c[i, 0, 4, 4] = c[i, 0, 9, 12] = c[i, 0, -1, -1] = v
+    rec = ref_dwt97.inv97_multilevel(jnp.asarray(c), 3, x0, y0)
+    t = torch.as_tensor(c)
+    for epilogue in ("coeffs", "pixels"):
+        want = _ref_epilogue(rec, 12, False, False, epilogue)
+        args = (3, x0, y0, 12, False, False, epilogue)
+        _eq(stage._inv97_stage_kernel(t, *args).numpy(), want)
+        _eq(stage.inv97_stage_plain(t, *args).numpy(), want)
+    assert kernel_lane == ["coeffs", "pixels"]
 
 
 @pytest.mark.parametrize("narrow", [False, True])
@@ -503,6 +534,7 @@ def test_refused_launch_propagates_through_the_decode_adapter(monkeypatch,
     def refused(*args, **kwargs):
         raise _kernels.KernelLaunchError("j2k97_inv_stage: refused")
     monkeypatch.setattr(_kernels, "j2k97_inv_stage", refused)
+    card_warps(monkeypatch)
     monkeypatch.setattr(port, "inv97_stage", stage._inv97_stage_kernel)
     with pytest.raises(_kernels.KernelLaunchError, match="refused"):
         _registry_decode(gdc.uids.JPEG_2000_LOSSY, streams, info)
@@ -524,4 +556,8 @@ def test_stage_lanes_by_device():
     x3 = torch.zeros((3, 8, 8), dtype=torch.float32)
     with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
         _kernels.j2k97_inv_stage(x3, x3.clone(),
-                                 dwt97.inv97_schedule(8, 8, 2), 3, "coeffs")
+                                 dwt97.inv97_schedule(
+                                     8, 8, 2, warps=H100_WARPS[False]), 3,
+                                 "coeffs")
+    with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
+        _kernels.j2k97_inv_warps(x3)
