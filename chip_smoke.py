@@ -27,8 +27,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    also with the RCT fused) on those too; the islow
    forward and inverse kernels bit-exact (``compare_islow``) at
    [32, 512, 512] and ragged shapes, 8-bit and 12-bit profiles, qualities
-   1, 50, 90 and 100, 16-bit samples under the 12-bit profile (the int32
-   wraparound) and ±32768 coefficients with a table of 65535s; the 9/7
+   1, 50, 90 and 100, int16 and int32 coefficients in, a stack of three
+   tables in one inverse launch, 65537 planes (past a grid dimension's
+   65535: folded into grid x), 16-bit
+   samples under the 12-bit profile (the int32 wraparound) and ±32768
+   coefficients with a table of 65535s; the 9/7
    stages bit-exact (``compare_97``: the forward from uint16, uint8 and
    float32 samples, the decode in all three epilogues) at [32, 1, 512,
    512], [8, 3, 512, 512] with the ICT, [2, 1, 16, 65535], [2, 1, 65535,
@@ -86,9 +89,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 7. drives JPEG baseline and extended through the same registry
    (``jpeg_phase``): .50 on 32 gray 512² 8-bit frames and .51 on 32 gray
    12-bit frames (the pipelined encode: one ``jpeg_fdct_islow`` launch an
-   encode chunk; one ``jpeg_idct_islow`` launch a decoded frame), .50 on
-   8 RGB frames (the per-frame native encode; three inverse launches a
-   frame), each byte-identical to ``make_registry(cuda:0,
+   encode chunk; the pipelined decode: one ``jpeg_idct_islow`` launch a
+   decode chunk of 8, 4 a decode), .50 on 8 RGB 4:4:4 frames (the
+   per-frame native encode; one inverse launch for the decode, luma and
+   chroma tables together), each byte-identical to ``make_registry(cuda:0,
    engine="host")`` in streams and pixels, with no float DCT launch;
    ``RATE`` and device-share lines of .50 and .51;
 8. drives the multi-device scale-out (``go_dicom_codec_torch/parallel``,
@@ -137,7 +141,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    device ms is null where no profile held every launch, and a fused
    stage call must be one device operation; the DCT's with an x+1 copy
    of its input timed beside it; the islow kernels' launches from the
-   JPEG phase, with the forward of 12-bit samples and the inverse of one
+   JPEG phase, timed at the pipelines' chunk of 8 frames (the inverse
+   from int16), with the forward of 12-bit samples, the RGB chunk's
+   table-stack inverse, both at [32, 512, 512] and the inverse of one
    frame timed beside them; the forward stage's with its RGB narrow stage
    beside it; both fused stages' with their narrow stage of [2, 16, 65535]
    (``long``); the 9/7 stages' at [32, 1, 512, 512] with RGB and long
@@ -166,6 +172,7 @@ from go_dicom_codec_torch import _kernels, native
 from go_dicom_codec_torch import pipeline as P
 from go_dicom_codec_torch.codecs import j2k_adapters
 from go_dicom_codec_torch.codecs.jpeg2000 import J2KEncoder
+from go_dicom_codec_torch.codecs.jpeg_common import CHROMA_QUANT
 from go_dicom_codec_torch.ops.convert import round_to_int32_sat
 from go_dicom_codec_torch.ops.dct8x8 import (LUMA_QUANT, _basis,
                                             decode_zigzag_to_plane,
@@ -189,6 +196,7 @@ from go_dicom_codec_torch.ops.j2k97_inv_stage import (inv97_stage,
 from go_dicom_codec_torch.ops.j2k_fwd_stage import fwd_stage, fwd_stage_plain
 from go_dicom_codec_torch.ops.j2k_inv_stage import inv_stage, inv_stage_plain
 from go_dicom_codec_torch.ops.jpeg_islow import (fdct_islow, idct_islow,
+                                                 idct_islow_plain,
                                                  plane_dtype)
 from go_dicom_codec_torch.ops.mct import dc_level_shift
 from go_dicom_codec_torch.tools import device_bench
@@ -236,7 +244,12 @@ SATURATE = (3e9, -3e9, float("nan"), float("inf"), float("-inf"),
             2147483520.0, 2.0 ** 31, -2.0 ** 31, 2.5, -2.5, 0.5)
 # the islow kernels' checks: shapes of ragged edges (beside [B, H, W]), the
 # profiles (bits, level shift, sample dtype) and the qualities
-ISLOW_RAGGED = ((3, 37, 45), (1, 1, 1), (2, 8, 4095), (1, 4095, 8))
+ISLOW_RAGGED = ((3, 37, 45), (1, 1, 1), (2, 8, 4095), (1, 4095, 8),
+                (2, 16, 9), (2, 24, 17), (1, 40, 263), (2, 16, 560))
+# planes of one launch past a grid dimension's 65535 (csrc/jpeg_islow.cu
+# folds the planes into grid x)
+ISLOW_FOLD_PLANES = 65537
+ISLOW_CHUNK = 8  # frames a chunk of both JPEG pipelines
 ISLOW_PROFILES = ((8, 128, np.uint8), (12, 2048, np.uint16))
 ISLOW_QUALITIES = (1, 50, 90, 100)
 # frames with long sides (DICOM's longest is 65535), along rows and along
@@ -616,32 +629,43 @@ def compare_97(rng, dev) -> dict:
 
 def compare_islow(dev) -> dict:
     """The islow kernels against their plain versions on the card, bit for
-    bit: the forward at [B, H, W] and ISLOW_RAGGED in both profiles and at
-    every quality (uint8 or uint16 samples, int32 once a profile), the
-    inverse on each forward's output into the narrowest dtype and into
-    int32; 16-bit samples under the 12-bit profile (coefficients past
-    int16, products past int32), where both also equal the plain version
-    on the CPU; the inverse of ±32768 coefficients with a table of 65535s
-    in both profiles, also against the CPU. Returns each kernel's max
-    |d|."""
+    bit: the forward at [B, H, W] and ISLOW_RAGGED (block columns 1, 2, 3,
+    6, 33, 70 and 512 across the CTA tiles) in both profiles and at every
+    quality (uint8 or uint16 samples, int32 once a profile), the inverse
+    on each forward's output from int32 and, where it fits, int16
+    coefficients into the narrowest dtype and into int32; one inverse
+    launch over a stack of three tables with a seeded index a plane, from
+    int16 and int32; ``ISLOW_FOLD_PLANES`` 8×8 planes each way, past a
+    grid dimension's 65535, the inverse also over the stack; 16-bit
+    samples under the
+    12-bit profile (coefficients past int16, products past int32), where
+    both also equal the plain version on the CPU; the inverse of ±32768
+    coefficients with a table of 65535s in both profiles, also against the
+    CPU. Returns each kernel's max |d|."""
     rng = np.random.default_rng(SEED + 2)
     errs = {"jpeg_fdct_islow": 0, "jpeg_idct_islow": 0}
     cases = 0
 
     def against_plain(name, got, want, cpu=None):
+        check(got.shape == want.shape, f"{name}: shape {tuple(got.shape)}")
         errs[name] = max(errs[name], max_abs_diff(got, want))
         if cpu is not None:
             check(want.cpu().equal(cpu), f"{name}: the plain version on "
                   f"the card differs from the CPU's")
 
-    def inverse(zz, q, level, max_val, on_cpu):
-        want = decode_zigzag_to_plane(zz, q, level, max_val)
-        cpu = (decode_zigzag_to_plane(zz.cpu(), q, level, max_val)
+    def inverse(zz, q, level, max_val, on_cpu, index=None):
+        want = idct_islow_plain(zz, q, level, max_val, index)
+        cpu = (idct_islow_plain(zz.cpu(), q, level, max_val, index)
                if on_cpu else None)
-        for dt in (plane_dtype(max_val), torch.int32):
-            got = idct_islow(zz, q, level, max_val, dt)
-            check(got.dtype == dt, f"jpeg_idct_islow gives {got.dtype}")
-            against_plain("jpeg_idct_islow", got, want, cpu)
+        ins = [zz]
+        if int(zz.min()) >= -32768 and int(zz.max()) <= 32767:
+            ins.append(zz.to(torch.int16))
+        for src in ins:
+            for dt in (plane_dtype(max_val), torch.int32):
+                got = idct_islow(src, q, level, max_val, dt,
+                                 table_index=index)
+                check(got.dtype == dt, f"jpeg_idct_islow gives {got.dtype}")
+                against_plain("jpeg_idct_islow", got, want, cpu)
 
     def both(x, q, level, max_val, on_cpu=False):
         nonlocal cases
@@ -660,6 +684,22 @@ def compare_islow(dev) -> dict:
                                     .astype(dtype), device=dev)
                 both(x, q, level, (1 << bits) - 1)
         both(x.to(torch.int32), q, level, (1 << bits) - 1)
+        # a table stack: a chunk's luma and chroma, frames of their own DQT
+        tables = np.stack([scale_quant_table(LUMA_QUANT, k, 255)
+                           .reshape(64) for k in (10, 50, 95)])
+        zz = both(torch.as_tensor(rng.integers(0, 1 << bits, (24, 40, 56))
+                                  .astype(dtype), device=dev), tables[1],
+                  level, (1 << bits) - 1)
+        inverse(zz, tables, level, (1 << bits) - 1, False,
+                tuple(int(t) for t in rng.integers(0, 3, 24)))
+        # past 65535 planes: one launch each way
+        x = torch.as_tensor(rng.integers(0, 1 << bits, (ISLOW_FOLD_PLANES,
+                                                        8, 8))
+                            .astype(dtype), device=dev)
+        zz = both(x, tables[0], level, (1 << bits) - 1)
+        inverse(zz, tables, level, (1 << bits) - 1, False,
+                tuple(int(t) for t in rng.integers(0, 3, len(zz))))
+        cases += 2
     # 16-bit samples under the 12-bit profile, the extreme blocks planted
     x16 = rng.integers(0, 1 << 16, (4, 64, 64)).astype(np.uint16)
     x16[0, :8, :8] = np.where(np.arange(8) % 2, 65535, 0)[None]
@@ -681,8 +721,10 @@ def compare_islow(dev) -> dict:
           f"versions: {errs}")
     print(f"islow kernels == plain on {cases} cases: [{B}, {H}, {W}] and "
           f"{list(ISLOW_RAGGED)}, 8- and 12-bit profiles, qualities "
-          f"{list(ISLOW_QUALITIES)}, 16-bit samples at level 2048, ±32768 "
-          f"coefficients × 65535")
+          f"{list(ISLOW_QUALITIES)}, int16 and int32 coefficients in, a "
+          f"stack of 3 tables, {ISLOW_FOLD_PLANES} planes in one launch, "
+          f"16-bit samples at level 2048, ±32768 coefficients × "
+          f"65535")
     return errs
 
 
@@ -908,12 +950,17 @@ def time_kernels(dev, rng, qt) -> dict:
     bytes in and 2 out a sample; ~4 operations a sample and pass, 4 in the
     epilogue), and beside it that of [2, 1, 16, 65535] (``long``). The
     DCT: [B, H, W] int32 in and out, 35 operations a sample, beside an x+1
-    copy of the same tensor. The islow kernels at
-    the 8-bit profile: the forward of [B, H, W] uint8 samples to int32
-    coefficients (about 40 int32 operations a sample, a divide among
-    them), the inverse of those back to uint8 (about 32); beside them the
-    forward of 12-bit uint16 samples (the .51 encode) and the inverse of
-    one frame (one decode launch)."""
+    copy of the same tensor. The islow kernels at the main path's
+    shapes: the forward of a JPEG encode chunk, [ISLOW_CHUNK, H, W] uint8
+    samples to int32 coefficients (about 40 int32 operations a sample),
+    the inverse of a .50 decode chunk's int16 coefficients back to uint8
+    (about 32); beside them the forward of 12-bit uint16 samples (the .51
+    encode chunk), the inverse of an RGB 4:4:4 decode chunk (3 ×
+    RGB_FRAMES planes, luma and chroma tables, ``rgb_stack``), and at
+    [B, H, W] the forward (``b32``, ``b32_uint16_12bit``) and the inverse
+    from int32 and int16 (``b32``, ``b32_int16``), and the inverse of one
+    frame from int32 (``per_frame``: the launch a frame and component
+    decoded before the pipelined decode)."""
     x16 = torch.as_tensor(rng.integers(0, 1 << 12, (B, H, W),
                                        dtype=np.uint16), device=dev)
     window = lifted(x16.shape)
@@ -971,23 +1018,55 @@ def time_kernels(dev, rng, qt) -> dict:
             lambda: fdct8x8_quant_plain(x, qt, DCT_SHIFT))[0],
         **bound(8 * B * H * W, 35 * B * H * W),
         "xplus1_ms": copy["ms"], "xplus1_device_ms": copy["device_ms"]}
-    n, q = B * H * W, scale_quant_table(LUMA_QUANT, 90, 255)
+    q = scale_quant_table(LUMA_QUANT, 90, 255)
+    tables = np.stack([q, scale_quant_table(CHROMA_QUANT, 90, 255)])
     x8 = torch.as_tensor(rng.integers(0, 256, (B, H, W)).astype(np.uint8),
                          device=dev)
     x16 = torch.as_tensor(rng.integers(0, 4096, (B, H, W)).astype(np.uint16),
                           device=dev)
+    rgb = torch.as_tensor(rng.integers(0, 256, (3 * RGB_FRAMES, H, W))
+                          .astype(np.uint8), device=dev)
     zz = fdct_islow(x8, q, 128)
+    zz16, zz_rgb = zz.to(torch.int16), fdct_islow(rgb, q, 128).to(
+        torch.int16)
+    rgb_index = (0, 1, 1) * RGB_FRAMES
+    c = ISLOW_CHUNK
+    n8, n = c * H * W, B * H * W
     steps = {
+        # the main path's launches: the encode pipeline's chunk, the
+        # decode pipeline's gray chunk (int16 in) and RGB 4:4:4 chunk
         "jpeg_fdct_islow": (
+            lambda: fdct_islow(x8[:c], q, 128),
+            lambda: encode_plane_to_zigzag(x8[:c], q, 128), 5 * n8, 40 * n8),
+        "jpeg_idct_islow": (
+            lambda: idct_islow(zz16[:c], q, 128, 255, torch.uint8),
+            lambda: decode_zigzag_to_plane(zz16[:c], q, 128, 255).to(
+                torch.uint8), 3 * n8, 32 * n8),
+        "fdct_uint16_12bit": (
+            lambda: fdct_islow(x16[:c], q, 2048),
+            lambda: encode_plane_to_zigzag(x16[:c], q, 2048), 6 * n8,
+            40 * n8),
+        "idct_rgb_stack": (
+            lambda: idct_islow(zz_rgb, tables, 128, 255, torch.uint8,
+                               table_index=rgb_index),
+            lambda: idct_islow_plain(zz_rgb, tables, 128, 255,
+                                     rgb_index).to(torch.uint8),
+            3 * zz_rgb.numel(), 32 * rgb.numel()),
+        # beside them: [B, H, W] (the earlier rows), int32 in, one frame
+        "fdct_b32": (
             lambda: fdct_islow(x8, q, 128),
             lambda: encode_plane_to_zigzag(x8, q, 128), 5 * n, 40 * n),
-        "jpeg_idct_islow": (
+        "fdct_b32_uint16_12bit": (
+            lambda: fdct_islow(x16, q, 2048),
+            lambda: encode_plane_to_zigzag(x16, q, 2048), 6 * n, 40 * n),
+        "idct_b32": (
             lambda: idct_islow(zz, q, 128, 255, torch.uint8),
             lambda: decode_zigzag_to_plane(zz, q, 128, 255).to(torch.uint8),
             5 * n, 32 * n),
-        "uint16_12bit": (
-            lambda: fdct_islow(x16, q, 2048),
-            lambda: encode_plane_to_zigzag(x16, q, 2048), 6 * n, 40 * n),
+        "idct_b32_int16": (
+            lambda: idct_islow(zz16, q, 128, 255, torch.uint8),
+            lambda: decode_zigzag_to_plane(zz16, q, 128, 255).to(
+                torch.uint8), 3 * n, 32 * n),
         "per_frame": (
             lambda: idct_islow(zz[:1], q, 128, 255, torch.uint8),
             lambda: decode_zigzag_to_plane(zz[:1], q, 128, 255).to(
@@ -996,8 +1075,14 @@ def time_kernels(dev, rng, qt) -> dict:
         t[name] = {**timing(kernel),
                    "plain_ms": device_bench.time_ms(plain)[0],
                    **bound(nbytes, nops, INT32_OPS_PER_S)}
-    t["jpeg_fdct_islow"]["uint16_12bit"] = t.pop("uint16_12bit")
-    t["jpeg_idct_islow"]["per_frame"] = t.pop("per_frame")
+    for name, key in (("fdct_uint16_12bit", "uint16_12bit"),
+                      ("fdct_b32", "b32"),
+                      ("fdct_b32_uint16_12bit", "b32_uint16_12bit")):
+        t["jpeg_fdct_islow"][key] = t.pop(name)
+    for name, key in (("idct_rgb_stack", "rgb_stack"), ("idct_b32", "b32"),
+                      ("idct_b32_int16", "b32_int16"),
+                      ("per_frame", "per_frame")):
+        t["jpeg_idct_islow"][key] = t.pop(name)
     return t
 
 
@@ -1746,12 +1831,14 @@ def jpeg_phase(rng, dev, card: str) -> dict:
     """.50 and .51 through ``make_registry(cuda:0)`` against the host
     engine: 32 gray 512² frames at 8 bits (.50) and 12 bits (.51, CT-like)
     take the pipelined encode, one ``jpeg_fdct_islow`` launch an encode
-    chunk and its ``pipeline.encode`` event on the device engine, and one
-    ``jpeg_idct_islow`` launch a frame on decode; 8 RGB frames (.50) the
-    per-frame native encode and three inverse launches a frame. Streams
-    byte-identical, decodes bit-identical, no float DCT, then the ``RATE``
-    (three rounds in turns) and device-share lines. Returns the launches
-    of the registry calls, each counted from 0 just before its call."""
+    chunk and its ``pipeline.encode`` event on the device engine, and the
+    pipelined decode, one ``jpeg_idct_islow`` launch a decode chunk (4 for
+    32 frames) and its ``pipeline.decode`` event; 8 RGB 4:4:4 frames (.50)
+    the per-frame native encode and one inverse launch for the decode's
+    one chunk, luma and chroma tables together. Streams byte-identical,
+    decodes bit-identical, no float DCT, then the ``RATE`` (three rounds
+    in turns) and device-share lines. Returns the launches of the registry
+    calls, each counted from 0 just before its call."""
     registry = gdc.make_registry(dev)
     host_registry = gdc.make_registry(dev, engine="host")
     launches = {"jpeg_fdct_islow": 0, "jpeg_idct_islow": 0}
@@ -1772,16 +1859,20 @@ def jpeg_phase(rng, dev, card: str) -> dict:
         check(np.array_equal(decoded, host_dec),
               f"{name}: the card decode differs from the host engine's")
         enc, dec = lc["encode"], lc["decode"]
-        if rgb:
-            want_runs, chunks = {}, 0
-        else:
-            want_runs = {"pipeline.encode": (1, "device")}
+        want_runs = {"pipeline.decode": (1, "device")}
+        chunks, dec_chunks = 0, -(-n // ISLOW_CHUNK)
+        if not rgb:
+            want_runs["pipeline.encode"] = (1, "device")
             chunks = profiling.EVENTS["pipeline.encode"]["chunks"]
         check(runs == want_runs, f"{name}: pipeline runs {runs}")
+        check(profiling.EVENTS["pipeline.decode"]["chunks"] == dec_chunks,
+              f"{name}: decode chunks {profiling.EVENTS['pipeline.decode']}")
         check(enc["jpeg_fdct_islow"] == chunks
-              and dec["jpeg_idct_islow"] == n * (3 if rgb else 1)
+              and dec["jpeg_idct_islow"] == dec_chunks
+              and dec_chunks == (1 if rgb else 4)
               and enc["jpeg_idct_islow"] == dec["jpeg_fdct_islow"] == 0,
-              f"{name}: launches {lc} ({chunks} encode chunks, {n} frames)")
+              f"{name}: launches {lc} ({chunks} encode chunks, "
+              f"{dec_chunks} decode chunks, {n} frames)")
         for k in launches:
             launches[k] += enc[k] + dec[k]
         err = int(np.abs(decoded.astype(np.int64) - frames).max())
@@ -1789,7 +1880,7 @@ def jpeg_phase(rng, dev, card: str) -> dict:
               f"engine, decode == host engine (max |decode - source| "
               f"{err}); jpeg_fdct_islow per encode {enc['jpeg_fdct_islow']} "
               f"({chunks} chunks), jpeg_idct_islow per decode "
-              f"{dec['jpeg_idct_islow']}, DCT "
+              f"{dec['jpeg_idct_islow']} ({dec_chunks} chunks), DCT "
               f"{enc['fdct8x8_quant'] + dec['fdct8x8_quant']}; "
               f"{sum(len(s) for s in streams) / n:.0f} bytes/frame")
         if rgb:
@@ -2434,7 +2525,8 @@ def main() -> int:
                         "bound_by": tk["bound_by"], "library_ms": None})
         for extra in ("xplus1_ms", "xplus1_device_ms", "uint16_12bit",
                       "per_frame", "rgb", "long", "long_col",
-                      "plain_device_ops"):
+                      "plain_device_ops", "b32", "b32_uint16_12bit",
+                      "b32_int16", "rgb_stack"):
             if extra in tk:
                 kernels[-1][extra] = tk[extra]
         if name in ("j2k_fwd_stage", "j2k_inv_stage"):

@@ -126,8 +126,9 @@ def _load():
                                          i, i, i, p]
     lib.gdct_j2k97_fwd_warps.argtypes = [i, i, p, p]
     lib.gdct_j2k97_inv_warps.argtypes = [i, p, p]
-    lib.gdct_jpeg_fdct_islow.argtypes = [p, i, p, p, ll, i, i, i, p]
-    lib.gdct_jpeg_idct_islow.argtypes = [p, p, i, p, ll, i, i, i, i, p]
+    lib.gdct_jpeg_fdct_islow.argtypes = [p, i, p, p, ll, i, i, i, i, p]
+    lib.gdct_jpeg_idct_islow.argtypes = [p, i, p, i, p, p, ll, i, i, i, i,
+                                         i, p]
     for fn in (lib.gdct_fdct8x8_quant, lib.gdct_j2k_fwd_stage,
                lib.gdct_j2k_inv_stage, lib.gdct_j2k97_fwd_stage,
                lib.gdct_j2k97_inv_stage, lib.gdct_j2k97_fwd_warps,
@@ -589,83 +590,113 @@ def fdct8x8_quant(x: torch.Tensor, out: torch.Tensor, d: torch.Tensor,
 # sample dtypes of the islow kernels, with their code in csrc/jpeg_islow.cu
 JPEG_DTYPES = {torch.uint8: 0, torch.uint16: 1, torch.int32: 2}
 JPEG_MAX = {dtype: torch.iinfo(dtype).max for dtype in JPEG_DTYPES}
+# coefficient dtypes the inverse reads, with their code
+JPEG_COEF_DTYPES = {torch.int16: 0, torch.int32: 1}
+JPEG_MAX_SIDE = 65535  # samples a side (DICOM's): 32-bit offsets in a plane
 
 
-def _jpeg_table(qtable: torch.Tensor, name: str) -> None:
-    _require(qtable, torch.int32, f"{name} qtable")
-    if qtable.numel() != 64:
-        raise KernelLaunchError(f"{name}: qtable needs 64 entries, got "
-                                f"{qtable.numel()}")
+def _jpeg_refuse(name: str, what: str) -> None:
+    raise KernelLaunchError(f"{name}: {what}")
 
 
 def jpeg_fdct_islow(x: torch.Tensor, out: torch.Tensor,
-                    qtable: torch.Tensor, level_shift: int) -> None:
+                    recip: torch.Tensor, level_shift: int) -> None:
     """Launch the forward islow stage once: samples ``x`` [P, H, W] (a
-    dtype of ``JPEG_DTYPES``) → ``x - level_shift`` edge-replicated to whole
-    8×8 blocks → islow DCT → quantized by ``qtable`` (int32 [64], raster
-    order, each entry in 1..65535: the caller checks the values, which lie
-    on the device here) → the int32 ``out`` [P, ceil(H/8), ceil(W/8), 64]
-    in zigzag order. ``level_shift`` >= 1024 takes the 12-bit profile."""
-    if x.dtype not in JPEG_DTYPES:
-        raise KernelLaunchError(f"jpeg_fdct_islow: no route for {x.dtype}")
-    _require(x, x.dtype, "jpeg_fdct_islow x")
-    _require(out, torch.int32, "jpeg_fdct_islow out")
-    _jpeg_table(qtable, "jpeg_fdct_islow")
+    dtype of ``JPEG_DTYPES``, sides up to ``JPEG_MAX_SIDE``) → ``x -
+    level_shift`` edge-replicated to whole 8×8 blocks → islow DCT →
+    quantized by d = 8q through ``recip`` (int32 [64, 2], each zigzag
+    index's {m, (d/2) << 5 | s}: ``ops.jpeg_islow._tables``; the caller
+    checks the values, which lie on the device here) → the int32 ``out``
+    [P, ceil(H/8), ceil(W/8), 64] in zigzag order, which must start on a
+    16-byte boundary (a fresh tensor does). ``level_shift`` >= 1024 takes
+    the 12-bit profile."""
+    name = "jpeg_fdct_islow"
+    code = JPEG_DTYPES.get(x.dtype)
+    if code is None:
+        _jpeg_refuse(name, f"no route for {x.dtype}")
+    dev = x.device
+    for t, dt, what in ((x, x.dtype, "x"), (out, torch.int32, "out"),
+                        (recip, torch.int32, "recip")):
+        _require(t, dt, f"{name} {what}")
+        if t.device != dev:
+            _jpeg_refuse(name, f"{what} is on {t.device}, x on {dev}")
+    if recip.numel() != 128 or not aligned16(recip):
+        _jpeg_refuse(name, "recip needs 64 × 2 entries on a 16-byte "
+                           "boundary")
+    if not aligned16(out):
+        _jpeg_refuse(name, "out must start on a 16-byte boundary")
     if x.dim() != 3 or out.dim() != 4:
-        raise KernelLaunchError(f"jpeg_fdct_islow: bad shapes "
-                                f"{tuple(x.shape)} → {tuple(out.shape)}")
+        _jpeg_refuse(name, f"bad shapes {tuple(x.shape)} → "
+                           f"{tuple(out.shape)}")
     p, h, w = x.shape
-    if tuple(out.shape) != (p, -(-h // 8), -(-w // 8), 64):
-        raise KernelLaunchError(f"jpeg_fdct_islow: out needs "
-                                f"{(p, -(-h // 8), -(-w // 8), 64)}, got "
-                                f"{tuple(out.shape)}")
+    want = (p, -(-h // 8), -(-w // 8), 64)
+    if tuple(out.shape) != want:
+        _jpeg_refuse(name, f"out needs {want}, got {tuple(out.shape)}")
+    if h > JPEG_MAX_SIDE or w > JPEG_MAX_SIDE:
+        _jpeg_refuse(name, f"a side of {h}×{w} passes {JPEG_MAX_SIDE}")
     if x.numel() == 0:
         return
-    lib = _load()
-    with torch.cuda.device(x.device):
-        err = lib.gdct_jpeg_fdct_islow(x.data_ptr(), JPEG_DTYPES[x.dtype],
-                                       out.data_ptr(), qtable.data_ptr(), p,
-                                       h, w, _int32(level_shift), _stream(x))
-    launch_counts["jpeg_fdct_islow"] += 1
-    _check(lib, err, "jpeg_fdct_islow")
+    err = _load().gdct_jpeg_fdct_islow(
+        x.data_ptr(), code, out.data_ptr(), recip.data_ptr(), p, h, w,
+        _int32(level_shift), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    launch_counts[name] += 1
+    _check(_lib, err, name)
 
 
 def jpeg_idct_islow(zz: torch.Tensor, out: torch.Tensor,
-                    qtable: torch.Tensor, level_shift: int,
-                    max_val: int) -> None:
-    """Launch the inverse islow stage once: int32 zigzag coefficients
-    ``zz`` [P, nby, nbx, 64] → dequantized by ``qtable`` (int32 [64], raster
-    order) → islow IDCT → + ``level_shift`` → clamped to [0, ``max_val``] in
+                    qtables: torch.Tensor, level_shift: int, max_val: int,
+                    table_index: torch.Tensor | None = None) -> None:
+    """Launch the inverse islow stage once: int16 or int32 zigzag
+    coefficients ``zz`` [P, nby, nbx, 64] (on a 16-byte boundary) → plane
+    p dequantized by table ``table_index[p]`` of ``qtables`` (int32 [T,
+    64], zigzag order; table 0 for every plane without ``table_index``, an
+    int32 [P] tensor whose values the caller checks to lie in [0, T)) →
+    islow IDCT → + ``level_shift`` → clamped to [0, ``max_val``] in
     ``out`` [P, nby * 8, nbx * 8] (a dtype of ``JPEG_DTYPES`` that holds
     ``max_val``; it must start on a 32-byte boundary, as a fresh tensor
     does). ``level_shift`` >= 1024 takes the 12-bit profile."""
-    if out.dtype not in JPEG_DTYPES:
-        raise KernelLaunchError(f"jpeg_idct_islow: no route for {out.dtype}")
-    _require(zz, torch.int32, "jpeg_idct_islow zz")
-    _require(out, out.dtype, "jpeg_idct_islow out")
-    _jpeg_table(qtable, "jpeg_idct_islow")
+    name = "jpeg_idct_islow"
+    code = JPEG_DTYPES.get(out.dtype)
+    coef = JPEG_COEF_DTYPES.get(zz.dtype)
+    if code is None or coef is None:
+        _jpeg_refuse(name, f"no route for {zz.dtype} → {out.dtype}")
+    dev = zz.device
+    tensors = [(zz, zz.dtype, "zz"), (out, out.dtype, "out"),
+               (qtables, torch.int32, "qtables")]
+    if table_index is not None:
+        tensors.append((table_index, torch.int32, "table_index"))
+    for t, dt, what in tensors:
+        _require(t, dt, f"{name} {what}")
+        if t.device != dev:
+            _jpeg_refuse(name, f"{what} is on {t.device}, zz on {dev}")
+    if qtables.dim() != 2 or qtables.shape[1] != 64 or not qtables.shape[0]:
+        _jpeg_refuse(name, f"qtables needs [T, 64], got "
+                           f"{tuple(qtables.shape)}")
     if not 0 <= max_val <= JPEG_MAX[out.dtype]:
-        raise KernelLaunchError(f"jpeg_idct_islow: max_val {max_val} does "
-                                f"not fit {out.dtype}")
-    if out.data_ptr() % 32:
-        raise KernelLaunchError("jpeg_idct_islow: out must start on a "
-                                "32-byte boundary")
+        _jpeg_refuse(name, f"max_val {max_val} does not fit {out.dtype}")
+    if out.data_ptr() % 32 or not aligned16(zz) or not aligned16(qtables):
+        _jpeg_refuse(name, "out must start on a 32-byte boundary, zz and "
+                           "qtables on a 16-byte one")
     if zz.dim() != 4 or zz.shape[-1] != 64 or out.dim() != 3:
-        raise KernelLaunchError(f"jpeg_idct_islow: bad shapes "
-                                f"{tuple(zz.shape)} → {tuple(out.shape)}")
+        _jpeg_refuse(name, f"bad shapes {tuple(zz.shape)} → "
+                           f"{tuple(out.shape)}")
     p, nby, nbx, _ = zz.shape
     if tuple(out.shape) != (p, nby * 8, nbx * 8):
-        raise KernelLaunchError(f"jpeg_idct_islow: out needs "
-                                f"{(p, nby * 8, nbx * 8)}, got "
-                                f"{tuple(out.shape)}")
+        _jpeg_refuse(name, f"out needs {(p, nby * 8, nbx * 8)}, got "
+                           f"{tuple(out.shape)}")
+    if table_index is not None and table_index.shape != (p,):
+        _jpeg_refuse(name, f"table_index needs ({p},), got "
+                           f"{tuple(table_index.shape)}")
+    if max(nby, nbx) > -(-JPEG_MAX_SIDE // 8):
+        _jpeg_refuse(name, f"a side of {nby}×{nbx} blocks passes "
+                           f"{JPEG_MAX_SIDE} samples")
     if zz.numel() == 0:
         return
-    lib = _load()
-    with torch.cuda.device(zz.device):
-        err = lib.gdct_jpeg_idct_islow(zz.data_ptr(), out.data_ptr(),
-                                       JPEG_DTYPES[out.dtype],
-                                       qtable.data_ptr(), p, nby, nbx,
-                                       _int32(level_shift), int(max_val),
-                                       _stream(zz))
-    launch_counts["jpeg_idct_islow"] += 1
-    _check(lib, err, "jpeg_idct_islow")
+    err = _load().gdct_jpeg_idct_islow(
+        zz.data_ptr(), coef, out.data_ptr(), code, qtables.data_ptr(),
+        None if table_index is None else table_index.data_ptr(), p, nby,
+        nbx, _int32(level_shift), int(max_val), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    launch_counts[name] += 1
+    _check(_lib, err, name)

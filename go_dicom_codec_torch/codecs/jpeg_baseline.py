@@ -21,13 +21,18 @@ alone), since nothing picks a device. ``JPEGBaselineCodec`` holds both,
 takes the pipelined encode for multi-frame gray as the engine says, and
 ``register`` fills a registry the caller passes instead of the global one.
 Unlike the reference, whose decode always takes the native IDCT when the
-library is built, the decode's dequant + IDCT follows the engine (one
-launch of the islow inverse kernel a component on a GPU the engine
-prefers); pixels are bit-identical either way.
+library is built, the decode's dequant + IDCT follows the engine (on a
+GPU the engine prefers, one launch of the islow inverse kernel a grid
+shape of a frame, luma and chroma together, and for multi-frame data one
+a chunk of frames and grid shape: ``decode_frames``,
+``pipeline.decode_frames_pipelined_jpeg``); pixels are bit-identical
+either way. ``decode`` is ``parse_scan`` (markers, Huffman) →
+``idct_frame`` → ``ScanFrame.assemble``.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -245,16 +250,42 @@ def _assemble_stream(scan: bytes, qtables, dc_tabs, ac_tabs, width: int,
     return w.get_bytes()
 
 
-def decode(data: bytes,
-           expected_sofs: Tuple[int, ...] = (mk.SOF0,),
-           max_precision: int = 8, *,
-           device: Optional[torch.device], engine: str = "auto"):
-    """Byte-level decode → (pixels bytes, width, height, components).
+@dataclass
+class ScanFrame:
+    """A sequential-DCT frame after the host's part of its decode (markers,
+    Huffman): each scanned component's zigzag coefficient grid ([rows,
+    cols, 64] int32, the padded MCU grid), quant table and sampling
+    factors, before the dequant + IDCT."""
 
-    Mirrors reference jpeg/baseline/decoder.go:40-111's marker loop. The
-    dequant + IDCT of each component runs where ``device`` and ``engine``
-    say (``jpeg_common.idct_and_assemble``).
-    """
+    precision: int
+    width: int
+    height: int
+    grids: List[np.ndarray]
+    tables: List[np.ndarray]
+    sampling: List[Tuple[int, int]]
+
+    def assemble(self, planes: List[np.ndarray]):
+        """The frame's (pixels bytes, width, height, components) from its
+        components' dequantized, inverse-transformed planes: cropped or
+        upsampled to full resolution, YCbCr → RGB for three components."""
+        max_h = max(ch for ch, _ in self.sampling)
+        max_v = max(cv for _, cv in self.sampling)
+        full = [jc.assemble_plane(plane, ch, cv, max_h, max_v, self.height,
+                                  self.width)
+                for plane, (ch, cv) in zip(planes, self.sampling)]
+        if len(full) == 1:
+            out = full[0].astype(np.uint8 if self.precision == 8 else "<u2")
+            return out.tobytes(), self.width, self.height, 1
+        ycc = np.stack(full, axis=-1).astype(np.uint8)
+        return (ycbcr_to_rgb_np(ycc).tobytes(), self.width, self.height,
+                3)
+
+
+def parse_scan(data: bytes, expected_sofs: Tuple[int, ...] = (mk.SOF0,),
+               max_precision: int = 8) -> ScanFrame:
+    """The host's part of a byte-level decode: markers, then the scan's
+    Huffman decode (reference jpeg/baseline/decoder.go:40-111's marker
+    loop), up to the dequant + IDCT."""
     r = mk.JpegReader(data)
     if r.read_marker() != mk.SOI:
         raise CorruptStreamError("missing SOI")
@@ -343,24 +374,67 @@ def decode(data: bytes,
 
     comp_zz = jc.decode_scan(scan_bytes, layout, dc_tables, ac_tables,
                              mcu_cols, mcu_rows, restart)
-
-    # Dequant + IDCT + clamp per component (host-native fast path, else
-    # one device launch), then upsample
-    planes = []
-    for (ch, cv, tq), zz in zip(order, comp_zz):
+    for _, _, tq in order:
         if tq not in qtables:
             raise CorruptStreamError(f"missing quant table {tq}")
-        planes.append(jc.idct_and_assemble(
-            zz.reshape(mcu_rows * cv, mcu_cols * ch, 64), qtables[tq],
-            precision, ch, cv, max_h, max_v, height, width, device=device,
-            engine=engine))
+    return ScanFrame(
+        precision, width, height,
+        [zz.reshape(mcu_rows * cv, mcu_cols * ch, 64)
+         for (ch, cv, _), zz in zip(order, comp_zz)],
+        [qtables[tq] for _, _, tq in order],
+        [(ch, cv) for ch, cv, _ in order])
 
-    nc = len(planes)
-    if nc == 1:
-        out = planes[0].astype(np.uint8 if precision == 8 else "<u2")
-        return out.tobytes(), width, height, 1
-    ycc = np.stack(planes, axis=-1).astype(np.uint8)
-    return ycbcr_to_rgb_np(ycc).tobytes(), width, height, 3
+
+def parse_frame(data: bytes):
+    """.50's host part of one frame: a ``ScanFrame``, or the pixels bytes of
+    a progressive stream, which third-party .50 data occasionally holds
+    (the reference decodes those through Go stdlib image/jpeg in its
+    Extended path), decoded whole on the host."""
+    try:
+        return parse_scan(data)
+    except UnsupportedFormatError as exc:
+        from . import jpeg_progressive as jp
+
+        try:
+            return jp.decode(data)[0]
+        except Exception:
+            raise exc
+
+
+def idct_frame(frame: ScanFrame, device: Optional[torch.device],
+               engine: str = "auto") -> List[np.ndarray]:
+    """The dequant + IDCT of each of ``frame``'s components: the native host
+    IDCT a component where ``device`` and ``engine`` say native
+    (``jpeg2000._native_53``), else one launch of the islow inverse kernel
+    a grid shape on ``device``, luma and chroma tables in one launch."""
+    from .jpeg2000 import _native_53
+
+    if _native_53(device, engine):
+        return [jc.idct_native(g, t, frame.precision)
+                for g, t in zip(frame.grids, frame.tables)]
+    planes: List[Optional[np.ndarray]] = [None] * len(frame.grids)
+    for prec, members, tables, index in jc.group_grids(
+            frame.grids, frame.tables, [frame.precision] * len(planes)):
+        zz = torch.as_tensor(np.stack([frame.grids[m] for m in members]),
+                             device=device)
+        out = jc.idct_group(zz, tables, index, prec).cpu().numpy()
+        for k, m in enumerate(members):
+            planes[m] = out[k]
+    return planes
+
+
+def decode(data: bytes,
+           expected_sofs: Tuple[int, ...] = (mk.SOF0,),
+           max_precision: int = 8, *,
+           device: Optional[torch.device], engine: str = "auto"):
+    """Byte-level decode → (pixels bytes, width, height, components).
+
+    Mirrors reference jpeg/baseline/decoder.go:40-111's marker loop
+    (``parse_scan``). The dequant + IDCT runs where ``device`` and
+    ``engine`` say (``idct_frame``).
+    """
+    frame = parse_scan(data, expected_sofs, max_precision)
+    return frame.assemble(idct_frame(frame, device, engine))
 
 
 def use_pipeline(device: torch.device, engine: str) -> bool:
@@ -433,22 +507,34 @@ class JPEGBaselineCodec(Codec):
 
     def decode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
                parameters: Optional[Parameters] = None) -> None:
-        for i in range(old_pixel_data.frame_count()):
-            data = old_pixel_data.get_frame(i)
-            try:
-                pixels, _, _, _ = decode(data, device=self.device,
-                                         engine=self.engine)
-            except UnsupportedFormatError as exc:
-                # third-party .50 streams are occasionally progressive;
-                # the reference decodes those through Go stdlib
-                # image/jpeg in its Extended path — accept them here too
-                from . import jpeg_progressive as jp
+        decode_frames(old_pixel_data, new_pixel_data, parse_frame,
+                      self.device, self.engine)
 
-                try:
-                    pixels, _, _, _ = jp.decode(data)
-                except Exception:
-                    raise exc
+
+def decode_frames(old_pixel_data: PixelData, new_pixel_data: PixelData,
+                  parse, device: Optional[torch.device], engine: str
+                  ) -> None:
+    """The .50 and .51 adapters' decode, ``parse`` their host part of a
+    frame: multi-frame data through ``pipeline.decode_frames_pipelined_jpeg``
+    where the engine rule sends the IDCT to the device
+    (``jpeg2000._native_53``), else frame by frame. A frame that fails
+    raises once the frames before it are added."""
+    from .jpeg2000 import _native_53
+
+    n = old_pixel_data.frame_count()
+    if n > 1 and not _native_53(device, engine):
+        from ..pipeline import decode_frames_pipelined_jpeg
+
+        for pixels in decode_frames_pipelined_jpeg(
+                [old_pixel_data.get_frame(i) for i in range(n)],
+                device=device, engine=engine, parse=parse):
             new_pixel_data.add_frame(pixels)
+        return
+    for i in range(n):
+        frame = parse(old_pixel_data.get_frame(i))
+        if isinstance(frame, ScanFrame):
+            frame = frame.assemble(idct_frame(frame, device, engine))[0]
+        new_pixel_data.add_frame(frame)
 
 
 def register(registry: CodecRegistry, device: torch.device,

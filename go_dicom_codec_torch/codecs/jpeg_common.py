@@ -15,7 +15,10 @@ Port of ``go_dicom_codec_tpu/codecs/jpeg_common.py``: only
 transform engine of the codec calling it: the native host IDCT where the
 engine rule of the J2K codecs says native (always without a device, as the
 progressive decoder calls it), else one launch of the islow inverse kernel
-(ops/jpeg_islow.py) on the device.
+(ops/jpeg_islow.py) on the device. Its tail is ``assemble_plane``, and
+``group_grids`` / ``idct_group`` gather the component grids of a frame
+or of a chunk of frames into one inverse launch per grid shape and
+precision (the baseline decode and ``pipeline.decode_frames_pipelined_jpeg``).
 """
 
 from __future__ import annotations
@@ -394,23 +397,43 @@ def idct_and_assemble(cf: np.ndarray, qtable: np.ndarray, precision: int,
     the narrowest unsigned dtype that holds it: the same values as the
     native lane's int32.
     """
-    from ..native import jpg_idct_native
     from .jpeg2000 import _native_53
 
-    level = 1 << (precision - 1)
-    max_val = (1 << precision) - 1
     if _native_53(device, engine):
-        plane = jpg_idct_native(cf, qtable, level, max_val)
-        if plane is None:  # the native library did not build
-            from ..ops.dct8x8 import decode_zigzag_to_plane_np
-
-            plane = decode_zigzag_to_plane_np(cf, qtable, level, max_val)
+        plane = idct_native(cf, qtable, precision)
     else:
         from ..ops.jpeg_islow import idct_islow, plane_dtype
 
+        max_val = (1 << precision) - 1
         plane = idct_islow(torch.as_tensor(cf, device=device), qtable,
-                           level, max_val, plane_dtype(max_val)
-                           ).cpu().numpy()
+                           1 << (precision - 1), max_val,
+                           plane_dtype(max_val)).cpu().numpy()
+    return assemble_plane(plane, ch, cv, max_h, max_v, height, width)
+
+
+def idct_native(cf: np.ndarray, qtable: np.ndarray,
+                precision: int) -> np.ndarray:
+    """Dequant + IDCT + shift + clamp of one component grid on the host:
+    the native library's, else (where it did not build) the numpy
+    mirror."""
+    from ..native import jpg_idct_native
+
+    level = 1 << (precision - 1)
+    max_val = (1 << precision) - 1
+    plane = jpg_idct_native(cf, qtable, level, max_val)
+    if plane is None:
+        from ..ops.dct8x8 import decode_zigzag_to_plane_np
+
+        plane = decode_zigzag_to_plane_np(cf, qtable, level, max_val)
+    return plane
+
+
+def assemble_plane(plane: np.ndarray, ch: int, cv: int, max_h: int,
+                   max_v: int, height: int, width: int) -> np.ndarray:
+    """A component's dequantized, inverse-transformed plane at full image
+    resolution: cropped at full rate, nearest-neighbor for non-integer
+    ratios, libjpeg-style upsampled otherwise (``idct_and_assemble``'s
+    tail)."""
     if ch == max_h and cv == max_v:
         return plane[:height, :width]
     if max_h % ch or max_v % cv:
@@ -421,6 +444,41 @@ def idct_and_assemble(cf: np.ndarray, qtable: np.ndarray, precision: int,
     chh = -(-height * cv // max_v)
     return fancy_upsample(plane[:chh, :cw], max_h // ch, max_v // cv,
                           height, width)
+
+
+def group_grids(grids: Sequence[np.ndarray], tables: Sequence[np.ndarray],
+                precisions: Sequence[int]) -> List[tuple]:
+    """The inverse launches of a set of component grids ([rows, cols, 64]
+    each, with its quant table and sample precision): one a (rows, cols,
+    precision), in order of first appearance, as (precision, member
+    positions, int32 [T, 64] stack of the group's distinct tables, each
+    member's index into it)."""
+    groups: Dict[tuple, tuple] = {}
+    for pos, (grid, table, prec) in enumerate(zip(grids, tables,
+                                                  precisions)):
+        key = (grid.shape[0], grid.shape[1], prec)
+        members, distinct, index = groups.setdefault(key, ([], {}, []))
+        t = np.ascontiguousarray(table, dtype=np.int32).reshape(64)
+        members.append(pos)
+        index.append(distinct.setdefault(t.tobytes(), len(distinct)))
+    return [(key[2], members,
+             np.stack([np.frombuffer(b, np.int32) for b in distinct]),
+             tuple(index))
+            for key, (members, distinct, index) in groups.items()]
+
+
+def idct_group(zz: torch.Tensor, tables: np.ndarray, index: tuple,
+               precision: int) -> torch.Tensor:
+    """Dequant + IDCT of a group's grids ``zz`` [P, rows, cols, 64] (int16
+    or int32) on their device, plane p by ``tables[index[p]]``: one launch
+    of the islow inverse kernel on a GPU (its plain version on the CPU),
+    into the narrowest unsigned dtype that holds ``precision`` bits."""
+    from ..ops import jpeg_islow
+
+    max_val = (1 << precision) - 1
+    return jpeg_islow.idct_islow(zz, tables, 1 << (precision - 1), max_val,
+                                 jpeg_islow.plane_dtype(max_val),
+                                 table_index=index)
 
 
 def fancy_upsample(plane: np.ndarray, fh: int, fv: int, height: int,

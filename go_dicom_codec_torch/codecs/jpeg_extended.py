@@ -12,6 +12,8 @@ Port of ``go_dicom_codec_tpu/codecs/jpeg_extended.py``: ``encode``,
 keyword; an explicit None means no device) and the transform engine of the
 baseline port (``jpeg_baseline``), and
 ``register`` fills a registry the caller passes instead of the global one.
+The adapter's decode is the baseline port's (``jpeg_baseline.decode_frames``)
+with .51's host part of a frame (``parse_frame``).
 """
 
 from __future__ import annotations
@@ -84,29 +86,38 @@ def detect_bit_depth(data: bytes) -> int:
     return detect_sof(data)[1]
 
 
+def parse_frame(data: bytes):
+    """.51's host part of one frame (``jpeg_baseline.parse_scan``): a
+    ``jpeg_baseline.ScanFrame`` of a sequential stream, or the pixels bytes
+    of a progressive (SOF2) 8-bit one, which the reference's Extended
+    decode accepts through Go stdlib image/jpeg
+    (jpeg/extended/encoder_simple.go:35-46), decoded whole on the host."""
+    sof, depth = detect_sof(data)
+    if sof == mk.SOF2:
+        from . import jpeg_progressive as jp
+
+        return jp.decode(data)[0]
+    if depth == 12:
+        return jb.parse_scan(data, (mk.SOF1,), 12)
+    return jb.parse_scan(data, (mk.SOF0, mk.SOF1), 8)
+
+
 def decode(data: bytes, *, device: Optional[torch.device],
            engine: str = "auto"):
     """Byte-level decode → (pixels, width, height, components, bit_depth).
 
-    Accepts progressive (SOF2) 8-bit streams like the reference's
-    Extended decode, which rides Go stdlib image/jpeg
-    (jpeg/extended/encoder_simple.go:35-46). Sequential streams take
-    their dequant + IDCT where ``device`` and ``engine`` say
-    (``jpeg_baseline.decode``); progressive ones the native IDCT."""
+    Sequential streams take their dequant + IDCT where ``device`` and
+    ``engine`` say (``jpeg_baseline.idct_frame``); progressive ones the
+    native IDCT (``parse_frame``)."""
     sof, depth = detect_sof(data)
     if sof == mk.SOF2:
         from . import jpeg_progressive as jp
 
         px, w, h, c = jp.decode(data)
         return px, w, h, c, 8
-    if depth == 12:
-        px, w, h, c = jb.decode(data, expected_sofs=(mk.SOF1,),
-                                max_precision=12, device=device,
-                                engine=engine)
-        return px, w, h, c, 12
-    px, w, h, c = jb.decode(data, expected_sofs=(mk.SOF0, mk.SOF1),
-                            max_precision=8, device=device, engine=engine)
-    return px, w, h, c, 8
+    frame = parse_frame(data)
+    px, w, h, c = frame.assemble(jb.idct_frame(frame, device, engine))
+    return px, w, h, c, 12 if depth == 12 else 8
 
 
 class JPEGExtendedCodec(Codec):
@@ -167,11 +178,8 @@ class JPEGExtendedCodec(Codec):
 
     def decode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
                parameters: Optional[Parameters] = None) -> None:
-        for i in range(old_pixel_data.frame_count()):
-            pixels, _, _, _, _ = decode(old_pixel_data.get_frame(i),
-                                        device=self.device,
-                                        engine=self.engine)
-            new_pixel_data.add_frame(pixels)
+        jb.decode_frames(old_pixel_data, new_pixel_data, parse_frame,
+                         self.device, self.engine)
 
 
 def register(registry: CodecRegistry, device: torch.device,

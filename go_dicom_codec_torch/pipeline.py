@@ -19,7 +19,9 @@ Port of ``go_dicom_codec_tpu/pipeline.py``:
   host entropy-codes chunk k (``_Lane`` holds the CUDA side of that);
 - the JPEG baseline/extended ``encode_frames_pipelined_jpeg`` on the same
   lane: one launch of the islow forward kernel (ops/jpeg_islow.py) a
-  chunk while the host Huffman-codes the chunk before.
+  chunk while the host Huffman-codes the chunk before; and
+  ``decode_frames_pipelined_jpeg``: one launch of the islow inverse kernel
+  a chunk and grid shape while the host Huffman-decodes the next chunk.
 
 The reference's ``device="auto"|"device"|"host"`` argument chooses an
 engine, not a device: here it is ``engine=``, and ``device`` is the
@@ -764,3 +766,112 @@ def encode_frames_pipelined_jpeg(frames, quality: int = 90,
                 write_jfif=precision > 8))
     _log_call("pipeline.encode", use_host, f, len(chunks))
     return out
+
+
+def decode_frames_pipelined_jpeg(streams, chunk: int = 8, *,
+                                 device: torch.device, engine: str = "auto",
+                                 parse: Optional[Callable] = None):
+    """Double-buffered JPEG baseline/extended multi-frame decode: yields
+    each frame's pixels bytes, in order.
+
+    The host parses and Huffman-decodes chunk k+1 (``parse``, .50's
+    ``jpeg_baseline.parse_frame`` by default, .51's
+    ``jpeg_extended.parse_frame``) while the device runs chunk k's dequant
+    + IDCT: one launch of the islow inverse kernel a grid shape and
+    precision of the chunk (frames of one size in gray or RGB 4:4:4: one;
+    4:2:0: two), luma and chroma tables in one launch, the coefficients up
+    as int16 where the group's fit (``_jpeg_upload``). Cropping, upsampling
+    and YCbCr → RGB run on the host after the readback. Where the codecs'
+    engine rule says native (``jpeg2000._native_53``), every frame takes
+    the native IDCT instead. A frame the parse decodes whole (a progressive
+    stream) is yielded in its place; a frame that fails raises once the
+    frames before it are yielded; a refused launch raises at once. Pixels
+    are bit-identical to the per-frame decode on every engine. Once every
+    frame is out it logs a ``pipeline.decode`` event (utils.profiling)
+    naming its engine.
+    """
+    from .codecs import jpeg_baseline as jb
+    from .codecs.jpeg2000 import _native_53
+
+    parse = parse or jb.parse_frame
+    use_host = _native_53(device, check_engine(engine))
+    lane = None if use_host else _Lane(device)
+    pending, chunks = None, 0
+    for start in range(0, len(streams), chunk):
+        frames, error = [], None
+        for data in streams[start : start + chunk]:
+            try:
+                frames.append(parse(data))
+            except Exception as exc:  # raised after the frames before it
+                error = exc
+                break
+        chunks += 1
+        if use_host:
+            for f in frames:
+                yield (f.assemble(jb.idct_frame(f, device, engine))[0]
+                       if isinstance(f, jb.ScanFrame) else f)
+        else:
+            submitted = (frames, _jpeg_submit(lane, frames))
+            if pending is not None:
+                yield from _jpeg_read(*pending)
+            pending = submitted
+        if error is not None:
+            if pending is not None:
+                yield from _jpeg_read(*pending)
+            raise error
+    if pending is not None:
+        yield from _jpeg_read(*pending)
+    _log_call("pipeline.decode", use_host, len(streams), chunks)
+
+
+def _jpeg_upload(batch: np.ndarray) -> np.ndarray:
+    """A group's int32 coefficients as int16 where every value fits (half
+    the upload; the kernel widens them), else as they are."""
+    if batch.size and batch.min() >= -INT16_MAX - 1 and \
+            batch.max() <= INT16_MAX:
+        return batch.astype(np.int16)
+    return batch
+
+
+def _jpeg_submit(lane: _Lane, frames: list):
+    """Start the dequant + IDCT of a chunk's sequential frames: one
+    ``_Lane.submit`` whose stage launches the inverse kernel once a group
+    of ``jpeg_common.group_grids``. Returns (the chunk, its groups, each
+    grid's (frame, component)), or None when no frame needs the device."""
+    from .codecs import jpeg_baseline as jb
+    from .codecs import jpeg_common as jc
+
+    grids, tables, precisions, where = [], [], [], []
+    for i, f in enumerate(frames):
+        if isinstance(f, jb.ScanFrame):
+            for j, (g, t) in enumerate(zip(f.grids, f.tables)):
+                grids.append(g)
+                tables.append(t)
+                precisions.append(f.precision)
+                where.append((i, j))
+    if not grids:
+        return None
+    groups = jc.group_grids(grids, tables, precisions)
+
+    def stage(*zz):
+        return tuple(jc.idct_group(z, tabs, index, prec)
+                     for z, (prec, _, tabs, index) in zip(zz, groups))
+
+    batches = [_jpeg_upload(np.stack([grids[m] for m in members]))
+               for _, members, _, _ in groups]
+    return lane.submit(stage, *batches), groups, where
+
+
+def _jpeg_read(frames: list, submitted):
+    """Yield a submitted chunk's frames: its planes read back, each frame
+    assembled on the host (frames the parse decoded whole as they are)."""
+    planes = [[None] * len(f.grids) if not isinstance(f, bytes) else None
+              for f in frames]
+    if submitted is not None:
+        pending, groups, where = submitted
+        for out, (_, members, _, _) in zip(pending.result(), groups):
+            for k, m in enumerate(members):
+                i, j = where[m]
+                planes[i][j] = out[k]
+    for f, p in zip(frames, planes):
+        yield f if p is None else f.assemble(p)[0]

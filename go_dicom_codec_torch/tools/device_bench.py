@@ -108,6 +108,7 @@ import json
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -346,23 +347,127 @@ def _stage97_steps(x: torch.Tensor) -> dict:
 
 
 def _jpeg_steps(x: torch.Tensor) -> dict:
-    """The two islow rows: {row: ({lane: step}, bound ms)}. Bound: uint16
-    samples and int32 coefficients, each read or written once."""
+    """The islow rows: {row: ({lane: step}, bound ms)}, the forward of
+    12-bit uint16 samples to int32 coefficients, its inverse back to
+    uint16 from int32 coefficients and from int16 ones (the decode
+    pipeline's upload). Bound: the samples and the coefficients, each
+    read or written once."""
     x16 = x.to(torch.uint16)
     q = scale_quant_table(LUMA_QUANT, 90, 255)
     zz = fdct_islow(x16, q, JPEG_LEVEL)
-    bound = x.numel() * 6 / HBM_BYTES_PER_S * 1e3
+    zz16 = zz.to(torch.int16)
+    n = x.numel()
     return {
         "dct8x8_quant_zigzag": ({
             "kernel": lambda: fdct_islow(x16, q, JPEG_LEVEL),
             "plain": lambda: encode_plane_to_zigzag(x16, q, JPEG_LEVEL)},
-            bound),
+            n * 6 / HBM_BYTES_PER_S * 1e3),
         "idct8x8_dequant": ({
             "kernel": lambda: idct_islow(zz, q, JPEG_LEVEL, 4095,
                                          torch.uint16),
             "plain": lambda: decode_zigzag_to_plane(
                 zz, q, JPEG_LEVEL, 4095).to(torch.uint16)},
-            bound)}
+            n * 6 / HBM_BYTES_PER_S * 1e3),
+        "idct8x8_dequant_int16": ({
+            "kernel": lambda: idct_islow(zz16, q, JPEG_LEVEL, 4095,
+                                         torch.uint16),
+            "plain": lambda: decode_zigzag_to_plane(
+                zz16, q, JPEG_LEVEL, 4095).to(torch.uint16)},
+            n * 4 / HBM_BYTES_PER_S * 1e3)}
+
+
+# the islow kernels' rows at the main paths' shapes (``islow_profile``):
+# (row, profile bits, coefficient dtype of the inverse)
+ISLOW_ROWS = (("fdct_u8", 8, None), ("fdct_u16_12bit", 12, None),
+              ("idct_int32_u8", 8, torch.int32),
+              ("idct_int16_u8", 8, torch.int16),
+              ("idct_int16_u16_12bit", 12, torch.int16),
+              ("idct_int32_u16_12bit", 12, torch.int32))
+
+
+def _islow_steps(frames: int, size: int, seed: int) -> dict:
+    """{row: (kernel step, bound ms)} of ``ISLOW_ROWS`` on ``frames``
+    frames of size² samples, plus the RGB decode chunk's one launch over
+    luma and chroma (``idct_rgb_stack_u8``: 3 planes a frame, a table
+    index a plane) where this checkout's ``idct_islow`` takes a table
+    index. Calls only ``fdct_islow`` and ``idct_islow``, so this file, put
+    in an earlier checkout, times that checkout's kernels (whose inverse
+    reads int32: an int16 row there includes the cast). Bound: each input
+    and output byte moved once over 3.35 TB/s."""
+    import inspect
+
+    from ..codecs.jpeg_common import CHROMA_QUANT
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(seed)
+    q = scale_quant_table(LUMA_QUANT, 90, 255)
+    rows = {}
+    for name, bits, coef in ISLOW_ROWS:
+        dt = torch.uint8 if bits == 8 else torch.uint16
+        x = torch.as_tensor(rng.integers(0, 1 << bits, (frames, size, size)),
+                            device=dev).to(dt)
+        level, top = 1 << (bits - 1), (1 << bits) - 1
+        n = x.numel()
+        if coef is None:
+            rows[name] = (lambda x=x, level=level: fdct_islow(x, q, level),
+                          n * (x.element_size() + 4) / HBM_BYTES_PER_S * 1e3)
+            continue
+        zz = fdct_islow(x, q, level).to(coef)
+        rows[name] = (lambda zz=zz, level=level, top=top, dt=dt:
+                      idct_islow(zz, q, level, top, dt),
+                      n * (zz.element_size() + x.element_size())
+                      / HBM_BYTES_PER_S * 1e3)
+    if "table_index" in inspect.signature(idct_islow).parameters:
+        tables = np.stack([q, scale_quant_table(CHROMA_QUANT, 90, 255)])
+        x = torch.as_tensor(rng.integers(0, 256, (3 * frames, size, size)),
+                            device=dev).to(torch.uint8)
+        zz = fdct_islow(x, q, 128).to(torch.int16)
+        index = (0, 1, 1) * frames
+        rows["idct_rgb_stack_u8"] = (
+            lambda: idct_islow(zz, tables, 128, 255, torch.uint8,
+                               table_index=index),
+            x.numel() * 3 / HBM_BYTES_PER_S * 1e3)
+    return rows
+
+
+def islow_profile(batches=(32, DECODE_SMALL_BATCH, 1), size: int = 512,
+                  iters: int = 10, seed: int = 0, card: str = "") -> list:
+    """``ISLOW|`` lines: every ``_islow_steps`` row at each batch, with its
+    event, host and device ms, device operations and bound."""
+    card = card or card_info()
+    return [_line(fn, iters, card, step=name, batch=batch, bound_ms=bound)
+            for batch in batches
+            for name, (fn, bound) in _islow_steps(batch, size, seed).items()]
+
+
+def sass_counts(lib: str) -> list:
+    """``SASS|`` lines: for every islow kernel instance in the shared
+    library ``lib``, its SASS instructions, the MUFU.RCP and CALL among
+    them (an integer division's reciprocal estimate or subroutine), and
+    its registers (``cuobjdump -res-usage``). A warp runs a kernel's code
+    once for its four 8×8 blocks (once a plane it walks), so instructions
+    / 4 is its count a block."""
+    import re
+
+    cuobjdump = str(Path(_kernels._find_nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    res = subprocess.run([cuobjdump, "-res-usage", lib], capture_output=True,
+                         text=True, check=True).stdout
+    regs = dict(re.findall(r"Function (\S+):\s*\n?\s*REG:(\d+)", res))
+    lines = []
+    for block in sass.split("Function : ")[1:]:
+        name = block.split()[0]
+        if "jpeg_" not in name:
+            continue
+        ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]+);", block)
+        lines.append({"kernel": name, "instructions": len(ins),
+                      "per_block": len(ins) / 4,
+                      "mufu_rcp": sum("MUFU.RCP" in i for i in ins),
+                      "calls": sum(i.split()[0].startswith("CALL")
+                                   for i in ins if i.split()),
+                      "registers": int(regs.get(name, -1)), "lib": lib})
+    return lines
 
 
 def _steps(x: torch.Tensor, qt: torch.Tensor) -> dict:
@@ -757,6 +862,13 @@ def main(argv=None) -> int:
                     help="only N pairs of TRACE| windows")
     ap.add_argument("--long", action="store_true",
                     help="only the LONG| lines")
+    ap.add_argument("--islow", action="store_true",
+                    help="only the ISLOW| lines: the islow kernels at "
+                         "--batch, the decode pipeline's chunk and one "
+                         "frame")
+    ap.add_argument("--sass", nargs="?", const=str(_kernels.LIB_PATH),
+                    help="only the SASS| lines of the islow kernels in a "
+                         "built library (default: this checkout's)")
     ap.add_argument("--stage97", action="store_true",
                     help="only the 9/7 stage rows' PROFILE| lines, at "
                          "--batch and at the decode pipeline's chunk")
@@ -764,6 +876,15 @@ def main(argv=None) -> int:
     w, h = (int(v) for v in opts.size.split("x"))
     card = card_info()
     print(card)
+    if opts.sass:
+        for r in sass_counts(opts.sass):
+            print("SASS|" + json.dumps(r), flush=True)
+        return 0
+    if opts.islow:
+        for r in islow_profile((opts.batch, DECODE_SMALL_BATCH, 1), w,
+                               opts.iters, card=card):
+            print("ISLOW|" + json.dumps(r), flush=True)
+        return 0
     if opts.stage97:
         for batch in (opts.batch, DECODE_SMALL_BATCH):
             for r in stage97_profile(batch, h, w, opts.iters, card=card):

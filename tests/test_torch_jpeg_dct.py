@@ -18,6 +18,9 @@ of uint8 triples, and the wrappers' refusals.
 Tolerance: 0 everywhere (integer stages).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -36,7 +39,10 @@ from go_dicom_codec_torch.ops import jpeg_islow
 SHAPES = ((2, 64, 64), (3, 37, 45), (1, 1, 1), (2, 8, 4095), (1, 4095, 8))
 PROFILES = {"8bit": (8, 128, np.uint8), "12bit": (12, 2048, np.uint16)}
 QUALITIES = (1, 50, 90, 100)
+ISLOW_SRC = (Path(__file__).resolve().parent.parent / "go_dicom_codec_torch"
+             / "csrc" / "jpeg_islow.cu")
 CTA_BLOCKS = 32  # kBlocks of csrc/jpeg_islow.cu: 256 threads, 8 a block
+ZZ = port.ZIGZAG  # raster position of each zigzag index
 
 
 def _samples(seed, shape, bits, dtype):
@@ -54,96 +60,178 @@ def _p1(level):
 
 # ---- numpy models of the two kernels' launches -----------------------------
 
-def _c_quantize(c, d):
-    """The kernel's quantize(): |c| and the sum wrap, C's truncating
-    division, then the floor fix."""
-    c = c.astype(np.int32)
-    mag = np.where(c < 0, np.int32(0) - c, c)
-    num = (mag + (d >> 1)).astype(np.int32)
-    n64, d64 = num.astype(np.int64), d.astype(np.int64)
-    q = np.sign(n64) * (np.abs(n64) // d64)          # truncation
-    q = q - ((n64 < 0) & (q * d64 != n64))           # to the floor
-    return np.where(c < 0, -q, q).astype(np.int64).astype(np.int32)
+def _kernel_constant(name):
+    """A constexpr of csrc/jpeg_islow.cu, read from the source."""
+    m = re.search(rf"constexpr \w+ {name} = (\d+);", ISLOW_SRC.read_text())
+    return int(m.group(1))
 
 
-def _threads(n_blocks):
-    """Every thread of the launch: (cta, r, lb, first, g, lane, wb)."""
-    grid = -(-n_blocks // CTA_BLOCKS)
-    t = np.arange(grid * 256)
-    cta, tid = t // 256, t % 256
-    first = cta * CTA_BLOCKS
-    return (cta, tid & 7, tid >> 3, first, first + (tid >> 3), tid & 31,
-            (tid >> 5) * 4, grid)
+def _wrap(v):
+    """int64 values wrapped to int32, as the kernel's unsigned arithmetic."""
+    return ((np.asarray(v, np.int64) + 2 ** 31) % 2 ** 32 - 2 ** 31)
+
+
+def recip_quantize(c, q):
+    """The kernel's quantize(): num = |c| + d/2 in unsigned (|INT32_MIN| is
+    2^31), its wrap mask (num >> 31 as int32), ⌊(num ^ mask) / d⌋ by
+    umulhi(·, m) >> s on the host's ``reciprocals`` of d = 8q, ^ mask, the
+    sign put back with wraparound. c and q broadcast; returns int32."""
+    c = np.asarray(c, np.int64)
+    d = 8 * np.asarray(q, np.int64)
+    k = jpeg_islow.reciprocals(d)
+    m, s = k[..., 0] & 0xFFFFFFFF, k[..., 1]
+    num = np.where(c < 0, -c, c) + (d >> 1)
+    mask = np.where(num >= 2 ** 31, 0xFFFFFFFF, 0)
+    n = num ^ mask
+    assert (n < 2 ** 31).all()
+    quot = (((n * m) >> 32) >> s) ^ mask
+    return _wrap(np.where(c < 0, -quot, quot)).astype(np.int32)
+
+
+def _geometry(nby, nbx):
+    """grid_of(): the CTA tile's log2 columns, the log2 of the tiles a
+    plane takes across in grid x (a power of two) and grid y."""
+    log_c = 0
+    while (1 << log_c) < nbx and log_c < 5:
+        log_c += 1
+    across = (nbx + (1 << log_c) - 1) >> log_c
+    log_gx = 0
+    while (1 << log_gx) < across:
+        log_gx += 1
+    rows = 5 - log_c
+    return log_c, log_gx, (nby + (1 << rows) - 1) >> rows
+
+
+def _ctas(nby, nbx, planes):
+    """Every CTA of a launch: the CTA tile's log2 columns and [n, 1]
+    arrays of the CTA's plane (blockIdx.x >> log_gx), tile across
+    (blockIdx.x & (2^log_gx - 1)) and tile down (blockIdx.y)."""
+    log_c, log_gx, gy = _geometry(nby, nbx)
+    bx_, by_ = np.meshgrid(np.arange(planes << log_gx), np.arange(gy),
+                           indexing="ij")
+    bx_, by_ = bx_.reshape(-1, 1), by_.reshape(-1, 1)
+    return log_c, bx_ >> log_gx, bx_ & ((1 << log_gx) - 1), by_
+
+
+def _block_of(log_c, cx, cy, lb):
+    """block_of(): (by, bx) of CTA-local block lb, by shifts and masks."""
+    bx = (cx << log_c) + (lb & ((1 << log_c) - 1))
+    by = (cy << (5 - log_c)) + (lb >> log_c)
+    return by, bx
+
+
+TID = np.arange(256)
+R, LB, LANE, WB = TID & 7, TID >> 3, TID & 31, (TID >> 5) * 4
 
 
 def fdct_kernel_model(x, qtable, level):
-    """csrc/jpeg_islow.cu's forward launch over [P, H, W] samples."""
+    """csrc/jpeg_islow.cu's forward launch over [P, H, W] samples: every
+    thread of every CTA (a plane's tile), its edge-clamped row load, the
+    row pass (the level shift subtracted from o[0] alone) into its block's
+    tile, the column pass back into it, then
+    each lane's four zigzag indices of two of its warp's blocks read,
+    quantized by the reciprocal quantizer and stored at the warp's run of
+    coefficients (its first block's offset, the lane's 16 bytes), every
+    coefficient stored exactly once."""
     p_, h, w = x.shape
     nby, nbx = -(-h // 8), -(-w // 8)
-    per, n_blocks = nby * nbx, p_ * nby * nbx
-    cta, r, lb, first, g, lane, wb, grid = _threads(n_blocks)
-    live = g < n_blocks
-    plane = np.where(live, g // per, 0)
-    rem = np.where(live, g - plane * per, 0)
-    by, bx = rem // nbx, rem - (rem // nbx) * nbx
-    y = np.minimum(by * 8 + r, h - 1)
-    cols = np.minimum(bx[:, None] * 8 + np.arange(8), w - 1)
-    d = (x[plane[:, None], y[:, None], cols].astype(np.int32)
-         - np.int32(level))
+    log_c, pl, cx, cy = _ctas(nby, nbx, p_)
+    n = len(pl)
+    by, bx = _block_of(log_c, cx, cy, LB[None])
+    live = (by < nby) & (bx < nbx)
+    y = np.minimum(by * 8 + R, h - 1)
+    cols = np.minimum(bx[..., None] * 8 + np.arange(8), w - 1)
+    d = x[pl[..., None], y[..., None], cols].astype(np.int32)
     rows = port_int._fdct_pass(d, np, final=False, p1=_p1(level))
-    tile = np.zeros((grid, CTA_BLOCKS, 8, 8), np.int32)
-    tile[cta[live], lb[live], r[live]] = rows[live]
-    col = tile[cta, lb, :, r]
-    f = port_int._fdct_pass(col, np, final=True, p1=_p1(level))  # [t, v]
+    # the level shift out of the samples: mod 2^32 it moves o[0] alone
+    rows[..., 0] = _wrap(rows[..., 0].astype(np.int64)
+                         - level * (8 << _p1(level)))
+    it = np.broadcast_to(np.arange(n)[:, None], live.shape)
+    lb = np.broadcast_to(LB, live.shape)
+    r = np.broadcast_to(R, live.shape)
+    tile = np.zeros((n, CTA_BLOCKS, 8, 8), np.int32)
+    tile[it[live], lb[live], r[live]] = rows[live]
+    col = tile[it, lb, :, r]
+    f = port_int._fdct_pass(col, np, final=True, p1=_p1(level))  # [., v]
+    tile[it[live], lb[live], :, r[live]] = f[live]
     q = np.asarray(qtable, np.int32).reshape(64)
-    div = q[np.arange(8)[None] * 8 + r[:, None]] * np.int32(8)
-    tile[cta[live], lb[live], :, r[live]] = _c_quantize(f, div)[live]
-    out = np.zeros(n_blocks * 64, np.int32)
-    writes = np.zeros(n_blocks * 64, np.int64)
-    for k in range(8):
-        b = wb + (k >> 1)
-        z = lane + 32 * (k & 1)
-        p = ref.ZIGZAG[z]
-        ok = first + b < n_blocks
-        at = ((first + b) * 64 + z)[ok]
-        out[at] = tile[cta[ok], b[ok], p[ok] >> 3, p[ok] & 7]
-        np.add.at(writes, at, 1)
+    # each lane: zigzag z0..z0 + 3 of blocks lane / 16 (+ 2), at the
+    # warp's run of 256 coefficients from its first block
+    flat = np.zeros(p_ * nby * nbx * 64, np.int32)
+    writes = np.zeros(flat.shape, np.int64)
+    wy, wx = _block_of(log_c, cx, cy, np.broadcast_to(WB, (n, 256)))
+    run = pl * (nby * nbx * 64) + (wy * nbx + wx) * 64     # [n, 256]
+    z0 = (LANE * 4) & 63
+    for h in range(2):
+        j = (LANE >> 4) + 2 * h
+        b = np.broadcast_to(WB + j, (n, 256))
+        jy, jx = _block_of(log_c, cx, cy, b)
+        ok = (jy < nby) & (jx < nbx)
+        for i in range(4):
+            z = np.broadcast_to(z0 + i, (n, 256))
+            at = (run + LANE * 4 + 128 * h + i)[ok]
+            flat[at] = recip_quantize(
+                tile[it[ok], b[ok], ZZ[z[ok]] >> 3, ZZ[z[ok]] & 7],
+                q[ZZ[z[ok]]])
+            np.add.at(writes, at, 1)
+    out = flat.reshape(p_, nby, nbx, 64)
     assert (writes == 1).all(), "a coefficient not stored exactly once"
-    return out.reshape(p_, nby, nbx, 64)
+    return out
 
 
-def idct_kernel_model(zz, qtable, level, max_val):
-    """csrc/jpeg_islow.cu's inverse launch over [P, nby, nbx, 64]."""
+def idct_kernel_model(zz, qtable, level, max_val, table_index=None):
+    """csrc/jpeg_islow.cu's inverse launch over [P, nby, nbx, 64] int16 or
+    int32 coefficients: each CTA's table (``qtable``: one table, or [T,
+    64] with ``table_index``), each lane's 16-byte loads (8 int16 or 4
+    int32 zigzag indices of one of its warp's blocks, at the warp's run
+    of coefficients) widened and dequantized into the tiles, the column
+    and row passes through the tile and each thread's one row store,
+    every sample stored exactly once."""
     p_, nby, nbx, _ = zz.shape
-    per, n_blocks = nby * nbx, p_ * nby * nbx
-    cta, r, lb, first, g, lane, wb, grid = _threads(n_blocks)
-    flat = zz.reshape(-1).astype(np.int32)
-    q = np.asarray(qtable, np.int32).reshape(64)
+    tables = np.asarray(qtable, np.int32).reshape(-1, 64)
+    tidx = np.zeros(p_, np.int64) if table_index is None else \
+        np.asarray(table_index, np.int64)
+    log_c, pl, cx, cy = _ctas(nby, nbx, p_)
+    n = len(pl)
     p1 = _p1(level)
-    tile = np.zeros((grid, CTA_BLOCKS, 8, 8), np.int32)
-    for k in range(8):
-        b = wb + (k >> 1)
-        z = lane + 32 * (k & 1)
-        p = ref.ZIGZAG[z]
-        ok = first + b < n_blocks
-        c = np.where(ok, flat[np.where(ok, (first + b) * 64 + z, 0)], 0)
-        dq = (c * q[p]).astype(np.int32)
-        if p1 == 1:
-            dq = (dq + np.int32(1)) >> 1
-        tile[cta, b, p >> 3, p & 7] = dq
-    w_ = port_int._idct_pass(tile[cta, lb, :, r], np, final=False, p1=p1)
-    tile[cta, lb, :, r] = w_
-    s = port_int._idct_pass(tile[cta, lb, r, :], np, final=True,
+    q = tables[tidx[pl[:, 0]]]                          # [n, 64]
+    tile = np.zeros((n, CTA_BLOCKS, 8, 8), np.int32)
+    it = np.broadcast_to(np.arange(n)[:, None], (n, 256))
+    flat = zz.reshape(-1)
+    per = 8 if zz.dtype == np.int16 else 4     # 16 bytes a load
+    wy, wx = _block_of(log_c, cx, cy, np.broadcast_to(WB, (n, 256)))
+    run = pl * (nby * nbx * 64) + (wy * nbx + wx) * 64
+    for h in range(256 // (32 * per)):
+        e = (h * 32 + LANE) * per
+        j = e >> 6
+        b = np.broadcast_to(WB + j, (n, 256))
+        jy, jx = _block_of(log_c, cx, cy, b)
+        ok = (jy < nby) & (jx < nbx)
+        for i in range(per):
+            z = np.broadcast_to((e & 63) + i, (n, 256))
+            c = np.where(ok, flat[np.where(ok, run + e + i, 0)]
+                         .astype(np.int32), 0)
+            dq = _wrap(c.astype(np.int64) * q[it, ZZ[z]]).astype(np.int32)
+            if p1 == 1:
+                dq = (dq + np.int32(1)) >> 1
+            tile[it, b, ZZ[z] >> 3, ZZ[z] & 7] = dq
+    lb = np.broadcast_to(LB, (n, 256))
+    r = np.broadcast_to(R, (n, 256))
+    tile[it, lb, :, r] = port_int._idct_pass(tile[it, lb, :, r], np,
+                                             final=False, p1=p1)
+    s = port_int._idct_pass(tile[it, lb, r, :], np, final=True,
                             p1=p1 if p1 != 1 else 0)
-    live = g < n_blocks
-    plane = g // per
-    rem = g - plane * per
-    by, bx = rem // nbx, rem - (rem // nbx) * nbx
+    by, bx = _block_of(log_c, cx, cy, LB[None])
+    live = (by < nby) & (bx < nbx)
     out = np.full((p_, nby * 8, nbx * 8), -1, np.int64)
+    writes = np.zeros(out.shape, np.int64)
     px = np.clip(s + np.int32(level), 0, max_val)
-    cols = bx[:, None] * 8 + np.arange(8)
-    out[plane[live, None], (by * 8 + r)[live, None], cols[live]] = px[live]
-    assert (out >= 0).all(), "a sample not stored"
+    cols = bx[..., None] * 8 + np.arange(8)
+    at = (np.broadcast_to(pl, live.shape)[live, None],
+          (by * 8 + r)[live, None], cols[live])
+    out[at] = px[live]
+    np.add.at(writes, at, 1)
+    assert (writes == 1).all(), "a sample not stored exactly once"
     return out.astype(np.int32)
 
 
@@ -167,7 +255,21 @@ def _forward_lanes(x, q, level):
 def _inverse_lanes(zz, q, level, max_val):
     zt = torch.as_tensor(zz)
     dt = jpeg_islow.plane_dtype(max_val)
-    return {
+    lanes = {}
+    if zz.min() >= -32768 and zz.max() <= 32767:  # the pipelines' upload
+        lanes["kernel_model_int16"] = idct_kernel_model(
+            zz.astype(np.int16), q, level, max_val)
+        lanes["ops_cpu_int16"] = jpeg_islow.idct_islow(
+            zt.to(torch.int16), q, level, max_val, dt).numpy()
+    # as the one table of a stack of two, every plane indexing it
+    stack = np.stack([np.full(64, 7, np.int32),
+                      np.asarray(q, np.int32).reshape(64)])
+    ones = np.ones(int(np.prod(zz.shape[:-3])), np.int64)
+    lanes["kernel_model_stack"] = idct_kernel_model(
+        zz, stack, level, max_val, ones)
+    lanes["ops_cpu_stack"] = jpeg_islow.idct_islow(
+        zt, stack, level, max_val, dt, table_index=tuple(ones)).numpy()
+    return {**lanes,
         "ref_jnp": np.asarray(ref.decode_zigzag_to_plane(
             jnp.asarray(zz), jnp.asarray(q), level_shift=level,
             max_val=max_val)),
@@ -262,8 +364,7 @@ def test_dct_int_lanes_match_reference(p1):
             got = as_np(got)
             assert got.dtype == want.dtype == np.int32
             assert np.array_equal(got, want)
-    assert _c_quantize(coeffs, np.full(coeffs.shape, 8 * 3, np.int32)
-                       ).tolist() == ref_int.quantize_islow(
+    assert recip_quantize(coeffs, 3).tolist() == ref_int.quantize_islow(
         coeffs, np.full((8, 8), 3, np.int32), np).tolist()
 
 
@@ -298,55 +399,208 @@ def test_ycbcr_matches_reference_both_ways():
         assert np.array_equal(pnp(rgb), want)
 
 
+# ---- the reciprocal quantizer and the launch geometry ----------------------
+
+DIVISORS = 8 * np.arange(1, 65536, dtype=np.int64)
+
+
+def _numerators(kind, rng):
+    """[k, 65535] numerators num = |c| + d/2 of each divisor d = 8q."""
+    d = DIVISORS
+    top = (2 ** 31 - 1) // d * d                 # the last multiple below 2^31
+    return {
+        "zero_and_half": [np.zeros_like(d), d // 2 - 1, d // 2, d // 2 + 1],
+        "multiples": [d - 1, d, d + 1, 2 * d - 1, 2 * d, 2 * d + 1],
+        "near_2_31": [top - 1, top, top + 1, top - d, top - d + 1,
+                      np.full_like(d, 2 ** 31 - 1)],
+        "random": list(rng.integers(0, 2 ** 31, (8, d.size))),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind", ("zero_and_half", "multiples", "near_2_31",
+                                  "random", "wrapped"))
+def test_reciprocal_quantizer_matches_reference_for_every_divisor(kind):
+    """The kernel's quantize() (``recip_quantize``, on the host's
+    ``reciprocals``) against the reference's ``quantize_islow`` for every
+    d = 8q, q in 1..65535, at coefficients ±(num − d/2) for edge
+    numerators (0, d/2 ± 1, kd − 1, kd, kd + 1 up to 2^31 − 1) and seeded
+    ones, and where the sum wraps (|c| within d/2 of 2^31, INT32_MIN)."""
+    rng = np.random.default_rng(15)
+    d = DIVISORS
+    if kind == "wrapped":
+        coeffs = [np.full_like(d, -2 ** 31), np.full_like(d, 2 ** 31 - 1),
+                  np.full_like(d, -2 ** 31 + 1), 2 ** 31 - d // 2,
+                  2 ** 31 - 1 - d // 2, 2 ** 31 - d // 2 - 1,
+                  2 ** 31 - 1 - rng.integers(0, d // 2 + 1)]
+        coeffs += [-c for c in coeffs[1:]]
+    else:
+        coeffs = [sign * (n - d // 2) for n in _numerators(kind, rng)
+                  for sign in (1, -1)]
+    c = np.clip(np.stack(coeffs), -2 ** 31, 2 ** 31 - 1)     # [k, 65535]
+    got = recip_quantize(c, d // 8)
+    q = np.append(d // 8, 1).reshape(-1, 8, 8)             # 1024 tables
+    cc = np.concatenate([c, np.zeros((len(c), 1), np.int64)], axis=1
+                        ).astype(np.int32).reshape(len(c), -1, 8, 8)
+    want = np.stack([ref_int.quantize_islow(cc[:, t], q[t], np)
+                     for t in range(len(q))], axis=1).reshape(len(c), -1)
+    assert np.array_equal(got, want[:, :d.size])
+    k = jpeg_islow.reciprocals(d)
+    assert (k[:, 1] >= 2).all() and (k[:, 1] <= 18).all()
+    m = k[:, 0] & 0xFFFFFFFF
+    assert ((m >= 2 ** 31) & (m < 2 ** 32)).all()
+
+
+def test_launch_constants_match_the_source():
+    """The models' CTA constants and zigzag tile words are the kernel's,
+    and neither kernel (nor its host code) divides: no / or % outside
+    comments."""
+    assert 1 << _kernel_constant("kLogBlocks") == CTA_BLOCKS
+    src = ISLOW_SRC.read_text()
+    table = src[src.index("kZigzagTile[16] = {"):]
+    words = [int(v) for v in re.findall(r"\d+", table[:table.index("};")])]
+    assert words[1:] == [(p >> 3) * 9 + (p & 7) for p in ZZ.tolist()]
+    assert _kernel_constant("kPitch") == 9
+    code = re.sub(r"//[^\n]*", "", ISLOW_SRC.read_text())
+    assert "/" not in code and "%" not in code
+
+
+@pytest.mark.parametrize("nbx", (1, 2, 3, 4, 5, 8, 9, 31, 32, 33, 64, 512))
+def test_cta_tile_covers_block_columns(nbx):
+    """grid_of's tiles: 2^log_c columns (the least power of two >= nbx,
+    at most 32) by 32 >> log_c rows, the tiles across a plane rounded up
+    to a power of two in grid x, times 3 planes; every block of every
+    plane lies in one CTA once, a surplus tile holds none, and a warp's
+    four blocks are neighbours in one block row from 4 columns on."""
+    nby, planes = 7, 3
+    log_c, log_gx, _ = _geometry(nby, nbx)
+    assert 1 << log_c == min(32, 1 << (nbx - 1).bit_length())
+    assert (1 << log_gx) >= -(-nbx // (1 << log_c)) > (1 << log_gx) // 2
+    _, pl, cx, cy = _ctas(nby, nbx, planes)
+    by, bx = _block_of(log_c, cx, cy, np.arange(CTA_BLOCKS)[None])
+    live = (by < nby) & (bx < nbx)
+    seen = np.zeros((planes, nby, nbx), np.int64)
+    np.add.at(seen, (np.broadcast_to(pl, live.shape)[live], by[live],
+                     bx[live]), 1)
+    assert (seen == 1).all()
+    if log_c >= 2:
+        warp = np.arange(CTA_BLOCKS).reshape(-1, 4)
+        assert (np.diff(by[0][warp], axis=1) == 0).all()
+        assert (np.diff(bx[0][warp], axis=1) == 1).all()
+
+
+@pytest.mark.parametrize("nbx", (1, 5, 33, 70))
+@pytest.mark.parametrize("coef", ("int16", "int32"))
+@pytest.mark.parametrize("profile", sorted(PROFILES))
+def test_table_stack_inverse_matches_reference(profile, coef, nbx):
+    """One inverse launch over 7 planes of three tables (a seeded index a
+    plane, as a chunk's luma and chroma), int16 or int32 coefficients in,
+    ``nbx`` block columns (70: three tiles across, rounded up to four in
+    grid x): the kernel model and the ops wrapper's plain loop over the
+    tables equal the reference's numpy lane plane by plane."""
+    bits, level, _ = PROFILES[profile]
+    rng = np.random.default_rng(bits + nbx)
+    zz = rng.integers(-300, 300, (7, 3, nbx, 64)).astype(np.int32)
+    zz[..., 0] = rng.integers(-2000, 2000, (7, 3, nbx))
+    tables = np.stack([_qtable(q).reshape(64) for q in (50, 90, 10)])
+    index = rng.integers(0, 3, 7)
+    index[:3] = (2, 0, 1)
+    max_val = (1 << bits) - 1
+    want = np.stack([ref.decode_zigzag_to_plane_np(zz[p], tables[t], level,
+                                                   max_val)
+                     for p, t in enumerate(index)])
+    src = zz.astype(np.int16) if coef == "int16" else zz
+    got = idct_kernel_model(src, tables, level, max_val, index)
+    assert np.array_equal(got, want)
+    ops = jpeg_islow.idct_islow(torch.as_tensor(src), tables, level,
+                                max_val, jpeg_islow.plane_dtype(max_val),
+                                table_index=tuple(index))
+    assert np.array_equal(ops.numpy().astype(np.int64), want)
+    with pytest.raises(ValueError, match="table indices"):
+        jpeg_islow.idct_islow(torch.as_tensor(src), tables, level, max_val,
+                              table_index=(0, 1))
+
+
 # ---- the wrappers' refusals ------------------------------------------------
 
 def test_kernel_wrappers_refuse_cpu_tensors_and_bad_arguments():
     x = torch.zeros((1, 8, 8), dtype=torch.uint8)
     q = torch.ones(64, dtype=torch.int32)
+    recip = torch.zeros((64, 2), dtype=torch.int32)
+    out = torch.empty((1, 1, 1, 64), dtype=torch.int32)
     with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
-        _kernels.jpeg_fdct_islow(x, torch.empty((1, 1, 1, 64),
-                                                dtype=torch.int32), q, 128)
+        _kernels.jpeg_fdct_islow(x, out, recip, 128)
     with pytest.raises(_kernels.KernelLaunchError, match="no route"):
-        _kernels.jpeg_fdct_islow(x.to(torch.int16), torch.empty(
-            (1, 1, 1, 64), dtype=torch.int32), q, 128)
+        _kernels.jpeg_fdct_islow(x.to(torch.int16), out, recip, 128)
     zz = torch.zeros((1, 1, 1, 64), dtype=torch.int32)
     with pytest.raises(_kernels.KernelLaunchError, match="CUDA tensor"):
         _kernels.jpeg_idct_islow(zz, torch.empty((1, 8, 8),
-                                                 dtype=torch.uint8), q, 128,
-                                 255)
+                                                 dtype=torch.uint8),
+                                 q.view(1, 64), 128, 255)
     with pytest.raises(_kernels.KernelLaunchError, match="no route"):
         _kernels.jpeg_idct_islow(zz, torch.empty((1, 8, 8),
-                                                 dtype=torch.int16), q, 128,
-                                 255)
+                                                 dtype=torch.int16),
+                                 q.view(1, 64), 128, 255)
+    with pytest.raises(_kernels.KernelLaunchError, match="no route"):
+        _kernels.jpeg_idct_islow(zz.to(torch.int64), torch.empty(
+            (1, 8, 8), dtype=torch.uint8), q.view(1, 64), 128, 255)
 
 
 def test_ops_check_tables_and_devices():
+    cpu = torch.device("cpu")
     bad = np.ones(64, np.int32)
     bad[5] = 0       # a zero divisor: the forward refuses it
     with pytest.raises(_kernels.KernelLaunchError, match="quant table"):
-        jpeg_islow._table(bad, torch.device("cpu"), 1)
-    assert jpeg_islow._table(bad, torch.device("cpu"), 0).tolist() == \
-        bad.tolist()
+        jpeg_islow._tables(bad, cpu, 1, recip=True)
+    tables, recip = jpeg_islow._tables(bad, cpu, 0)     # zigzag order
+    assert recip is None and tables.tolist() == [bad[ZZ].tolist()]
+    assert jpeg_islow._tables(bad, cpu, 0)[0] is tables     # built once
     with pytest.raises(_kernels.KernelLaunchError, match="quant table"):
-        jpeg_islow._table(np.full(64, 65536), torch.device("cpu"), 0)
+        jpeg_islow._tables(np.full(64, 65536), cpu, 0)
+    with pytest.raises(_kernels.KernelLaunchError, match="64 entries"):
+        jpeg_islow._tables(np.ones(65), cpu, 0)
+    with pytest.raises(_kernels.KernelLaunchError, match="64 entries"):
+        jpeg_islow._tables(np.ones((2, 64)), cpu, 1, recip=True)
+    stack, _ = jpeg_islow._tables(np.arange(192).reshape(3, 8, 8), cpu, 0)
+    assert stack.shape == (3, 64) and stack.dtype == torch.int32
+    assert stack.is_contiguous()            # as the CUDA wrapper needs
+    assert stack.tolist() == np.arange(192).reshape(3, 64)[:, ZZ].tolist()
+    q = _qtable(90)
+    tables, recip = jpeg_islow._tables(q, cpu, 1, recip=True)
+    assert recip.shape == (64, 2) and recip.dtype == torch.int32
+    k = jpeg_islow.reciprocals(8 * q.reshape(64)[ZZ].astype(np.int64))
+    assert recip[:, 0].tolist() == k[:, 0].tolist()
+    assert recip[:, 1].tolist() == (
+        (4 * q.reshape(64)[ZZ].astype(np.int64)) << 5 | k[:, 1]).tolist()
+    assert jpeg_islow._index((0, 0), 1, cpu) is None    # table 0: no index
+    assert jpeg_islow._index((1, 0), 2, cpu).tolist() == [1, 0]
+    with pytest.raises(ValueError, match="table index"):
+        jpeg_islow._index((0, 2), 2, cpu)
     with pytest.raises(ValueError, match="does not fit"):
         jpeg_islow.idct_islow(torch.zeros((1, 1, 64), dtype=torch.int32),
                               np.ones(64), 2048, 4095, torch.uint8)
     meta = torch.zeros((1, 8, 8), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError, match="no lane"):
         jpeg_islow.fdct_islow(meta, np.ones(64))
+    with pytest.raises(ValueError, match="no lane"):
+        jpeg_islow.idct_islow(meta.to(torch.int32).view(1, 1, 64),
+                              np.ones(64))
     assert [jpeg_islow.plane_dtype(m) for m in (255, 4095, 65535, 65536)] \
         == [torch.uint8, torch.uint16, torch.uint16, torch.int32]
 
 
 def test_device_bench_islow_rows_agree_on_the_cpu():
-    """The device bench's two islow rows: both lanes give the same result
-    on CPU tensors, and the bound counts uint16 in and int32 out."""
+    """The device bench's islow rows: both lanes give the same result on
+    CPU tensors, and the bound counts uint16 samples and int32 (or int16)
+    coefficients."""
     from go_dicom_codec_torch.tools import device_bench
 
     x = torch.as_tensor(_samples(9, (2, 24, 40), 12, np.int32))
     rows = device_bench._jpeg_steps(x)
-    assert sorted(rows) == ["dct8x8_quant_zigzag", "idct8x8_dequant"]
-    for lanes, bound in rows.values():
+    assert sorted(rows) == ["dct8x8_quant_zigzag", "idct8x8_dequant",
+                            "idct8x8_dequant_int16"]
+    for name, (lanes, bound) in rows.items():
         assert torch.equal(lanes["kernel"](), lanes["plain"]())
-        assert bound == pytest.approx(x.numel() * 6 / 3.35e12 * 1e3)
+        per = 4 if name.endswith("int16") else 6
+        assert bound == pytest.approx(x.numel() * per / 3.35e12 * 1e3)
+    assert rows["idct8x8_dequant_int16"][0]["kernel"]().equal(
+        rows["idct8x8_dequant"][0]["kernel"]())
