@@ -1,0 +1,7 @@
+"""Frames/s of every encode call of every client over the whole window."""
+
+from bench_port.readers import frames_per_s
+
+
+def read(run):
+    return frames_per_s(run, "encode")

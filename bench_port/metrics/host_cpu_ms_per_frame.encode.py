@@ -1,0 +1,7 @@
+"""Host CPU ms per encoded frame, outside the profiled stretch."""
+
+from bench_port.readers import host_cpu_ms_per_frame
+
+
+def read(run):
+    return host_cpu_ms_per_frame(run, "encode")
