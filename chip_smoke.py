@@ -1998,9 +1998,9 @@ class DeviceLaneEncoder(J2KEncoder):
     lossy host fast path would take the native 9/7 (float, but not
     bit-pinned to torch's). No ROI."""
 
-    def _tile_coeffs_timed(self, arr, rect, cod, qcd, bit_depth, signed,
-                           use_mct, roi_shifts=None,
-                           precomputed_coeffs=None) -> np.ndarray:
+    def _tile_coeffs(self, arr, rect, cod, qcd, bit_depth, signed,
+                     use_mct, roi_shifts=None,
+                     precomputed_coeffs=None) -> np.ndarray:
         check(not roi_shifts and precomputed_coeffs is None,
               "DeviceLaneEncoder: no ROI or precomputed tiles")
         tx0, ty0, tx1, ty1 = rect

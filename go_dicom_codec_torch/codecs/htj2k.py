@@ -24,7 +24,9 @@ from ..errors import UnsupportedFormatError
 from ..frames import FrameInfo, PixelData, frame_to_array
 from ..params import Parameters, require_range
 from ..pipeline import check_engine
-from ..registry import Codec, CodecRegistry
+from ..registry import CodecRegistry
+from ..utils.profiling import count, span
+from .j2k_adapters import SpannedCodec
 from .jpeg2000 import J2KEncodeParams, J2KEncoder, decode_to_pixels
 
 
@@ -44,7 +46,7 @@ class HTJ2KParameters(Parameters):
                       int(self.get_parameter("num_levels", 5)), 0, 6)
 
 
-class HTJ2KLosslessCodec(Codec):
+class HTJ2KLosslessCodec(SpannedCodec):
     """UID .201 (reference htj2k/codec.go:289-310)."""
 
     _uid = uids.HTJ2K_LOSSLESS
@@ -93,8 +95,8 @@ class HTJ2KLosslessCodec(Codec):
         p.num_levels = p.clamped_levels(info.width, info.height)
         return p
 
-    def encode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
-               parameters: Optional[Parameters] = None) -> None:
+    def _encode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
+                parameters: Optional[Parameters]) -> str:
         info = old_pixel_data.get_frame_info()
         if not self._lossless and info.is_signed:
             raise UnsupportedFormatError("HTJ2K lossy rejects signed pixels")
@@ -108,9 +110,10 @@ class HTJ2KLosslessCodec(Codec):
             new_pixel_data.add_frame(enc.encode(
                 frame, info.width, info.height, info.samples_per_pixel,
                 info.bits_stored, info.is_signed and self._lossless))
+        return "scalar"
 
-    def decode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
-               parameters: Optional[Parameters] = None) -> None:
+    def _decode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
+                parameters: Optional[Parameters]) -> str:
         nframes = old_pixel_data.frame_count()
         if nframes > 1:
             # batched host-entropy / device-inverse overlap — HT block
@@ -127,18 +130,21 @@ class HTJ2KLosslessCodec(Codec):
                 frames, (depth, signed) = decode_frames_pipelined(
                     streams, return_info=True, engine=self.engine,
                     device=self.device)
-                for arr in frames:
-                    new_pixel_data.add_frame(pack_decoded_pixels(
-                        arr, depth, signed))
-                return
+                with span("adapter.pack"):
+                    for arr in frames:
+                        new_pixel_data.add_frame(pack_decoded_pixels(
+                            arr, depth, signed))
+                return "pipelined"
             except (UnsupportedFormatError, ValueError,
                     CorruptStreamError):
-                pass  # heterogeneous/multi-tile: scalar path below
+                # heterogeneous/multi-tile: scalar path below
+                count("adapter.fallbacks")
         for i in range(nframes):
             pix, *_ = decode_to_pixels(old_pixel_data.get_frame(i),
                                        device=self.device,
                                        engine=self.engine)
             new_pixel_data.add_frame(pix)
+        return "scalar"
 
 
 class HTJ2KLosslessRPCLCodec(HTJ2KLosslessCodec):

@@ -24,8 +24,32 @@ from ..frames import FrameInfo, PixelData, frame_to_array
 from ..params import Parameters, require_range
 from ..pipeline import check_engine
 from ..registry import Codec, CodecRegistry
+from ..utils.profiling import count, span
 from .jpeg2000 import (J2KDecoder, J2KEncodeParams, J2KEncoder,
                        decode_to_pixels)
+
+
+class SpannedCodec(Codec):
+    """A codec whose ``encode`` and ``decode`` record one ``codec.<op>``
+    span each (utils.profiling; attributes ``frames`` and the ``route``
+    taken, ``pipelined`` or ``scalar``) and count ``frames.<op>``, around
+    its ``_encode`` / ``_decode``, which return the route."""
+
+    def encode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
+               parameters: Optional[Parameters] = None) -> None:
+        n = old_pixel_data.frame_count()
+        with span("codec.encode", frames=n) as sp:
+            sp.set(route=self._encode(old_pixel_data, new_pixel_data,
+                                      parameters))
+        count("frames.encode", n)
+
+    def decode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
+               parameters: Optional[Parameters] = None) -> None:
+        n = old_pixel_data.frame_count()
+        with span("codec.decode", frames=n) as sp:
+            sp.set(route=self._decode(old_pixel_data, new_pixel_data,
+                                      parameters))
+        count("frames.decode", n)
 
 
 class J2KLosslessParameters(Parameters):
@@ -161,7 +185,7 @@ def _params_from(parameters: Optional[Parameters],
     return p
 
 
-class J2KLosslessCodec(Codec):
+class J2KLosslessCodec(SpannedCodec):
     """UID .90 (reference jpeg2000/lossless/codec.go:306-322)."""
 
     _uid = uids.JPEG_2000_LOSSLESS
@@ -180,8 +204,8 @@ class J2KLosslessCodec(Codec):
     def get_default_parameters(self) -> Parameters:
         return J2KLosslessParameters()
 
-    def encode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
-               parameters: Optional[Parameters] = None) -> None:
+    def _encode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
+                parameters: Optional[Parameters]) -> str:
         info = old_pixel_data.get_frame_info()
         params = _params_from(parameters, lossless=True)
         _apply_rate_levels(params, parameters, info)
@@ -222,7 +246,7 @@ class J2KLosslessCodec(Codec):
                     signed=info.is_signed, levels=params.num_levels,
                     params=params, engine=self.engine, device=self.device):
                 new_pixel_data.add_frame(stream)
-            return
+            return "pipelined"
         enc = J2KEncoder(params, device=self.device, engine=self.engine)
         for i in range(nframes):
             frame = old_pixel_data.get_frame(i)
@@ -232,9 +256,10 @@ class J2KLosslessCodec(Codec):
             new_pixel_data.add_frame(enc.encode(
                 frame, info.width, info.height, info.samples_per_pixel,
                 info.bits_stored, info.is_signed))
+        return "scalar"
 
-    def decode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
-               parameters: Optional[Parameters] = None) -> None:
+    def _decode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
+                parameters: Optional[Parameters]) -> str:
         info = old_pixel_data.get_frame_info()
         nframes = old_pixel_data.frame_count()
         if nframes > 1:
@@ -250,12 +275,14 @@ class J2KLosslessCodec(Codec):
                     device=self.device)
                 from .jpeg2000 import pack_decoded_pixels
                 widen = info.bytes_allocated == 2 and depth <= 8
-                for arr in frames:
-                    new_pixel_data.add_frame(pack_decoded_pixels(
-                        arr, depth, signed, widen16=widen))
-                return
+                with span("adapter.pack"):
+                    for arr in frames:
+                        new_pixel_data.add_frame(pack_decoded_pixels(
+                            arr, depth, signed, widen16=widen))
+                return "pipelined"
             except (UnsupportedFormatError, ValueError, CorruptStreamError):
-                pass  # heterogeneous/multi-tile: scalar path below
+                # heterogeneous/multi-tile: scalar path below
+                count("adapter.fallbacks")
         for i in range(nframes):
             pix, w, h, c, depth, signed = decode_to_pixels(
                 old_pixel_data.get_frame(i), device=self.device,
@@ -266,6 +293,7 @@ class J2KLosslessCodec(Codec):
                 wd = np.dtype("<i2") if signed else np.dtype("<u2")
                 pix = np.frombuffer(pix, dtype=dt).astype(wd).tobytes()
             new_pixel_data.add_frame(pix)
+        return "scalar"
 
 
 class J2KMCLosslessCodec(J2KLosslessCodec):
@@ -294,7 +322,7 @@ class J2KLossyParameters(Parameters):
         require_range("quality", self.quality, 1, 100)
 
 
-class J2KLossyCodec(Codec):
+class J2KLossyCodec(SpannedCodec):
     """UID .91 (reference jpeg2000/lossy/codec.go:221-237): 9/7 + scalar
     quantization; signed pixels rejected like the reference
     (lossy/codec.go:73-180)."""
@@ -313,8 +341,8 @@ class J2KLossyCodec(Codec):
     def get_default_parameters(self) -> Parameters:
         return J2KLossyParameters()
 
-    def encode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
-               parameters: Optional[Parameters] = None) -> None:
+    def _encode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
+                parameters: Optional[Parameters]) -> str:
         info = old_pixel_data.get_frame_info()
         if info.is_signed:
             raise UnsupportedFormatError(
@@ -332,9 +360,10 @@ class J2KLossyCodec(Codec):
             new_pixel_data.add_frame(enc.encode(
                 frame, info.width, info.height, info.samples_per_pixel,
                 info.bits_stored, False))
+        return "scalar"
 
-    def decode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
-               parameters: Optional[Parameters] = None) -> None:
+    def _decode(self, old_pixel_data: PixelData, new_pixel_data: PixelData,
+                parameters: Optional[Parameters]) -> str:
         nframes = old_pixel_data.frame_count()
         if nframes > 1:
             # batched host-entropy+dequant / device-9/7-inverse overlap
@@ -349,16 +378,19 @@ class J2KLossyCodec(Codec):
                 frames, (depth, signed) = decode_frames_pipelined(
                     streams, return_info=True, engine=self.engine,
                     device=self.device)
-                for arr in frames:
-                    new_pixel_data.add_frame(pack_decoded_pixels(
-                        arr, depth, signed))
-                return
+                with span("adapter.pack"):
+                    for arr in frames:
+                        new_pixel_data.add_frame(pack_decoded_pixels(
+                            arr, depth, signed))
+                return "pipelined"
             except (UnsupportedFormatError, ValueError, CorruptStreamError):
-                pass  # heterogeneous/multi-tile: scalar path below
+                # heterogeneous/multi-tile: scalar path below
+                count("adapter.fallbacks")
         for i in range(nframes):
             pix, *_ = decode_to_pixels(old_pixel_data.get_frame(i),
                                        device=self.device)
             new_pixel_data.add_frame(pix)
+        return "scalar"
 
 
 class J2KMCLossyCodec(J2KLossyCodec):

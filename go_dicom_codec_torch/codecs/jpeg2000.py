@@ -14,6 +14,7 @@ slice of the packed-Mallat array, code-block stats come from one reduction
 from __future__ import annotations
 
 import math
+import os
 import struct
 
 from dataclasses import dataclass, field, replace
@@ -37,6 +38,7 @@ from ..ops.mct import (dc_level_shift, dc_level_shift_np,
 from ..t2.packets import (BlockState, PrecinctState, decode_packet,
                           decode_packet_split, encode_packet,
                           progression_order)
+from ..utils.profiling import count, span
 from . import j2k_quant as jq
 from .j2k_geometry import (BandGeom, ResolutionGeom, build_tile_geometry,
                            band_gain, ceil_div)
@@ -46,7 +48,33 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     """A contiguous copy of ``a`` on ``device``, which the caller owns."""
     if device is None:
         raise ValueError("the J2K device stage needs a torch.device")
-    return torch.tensor(np.ascontiguousarray(a), device=device)
+    with span("device.stage"):
+        return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host, once the device work that makes it is done."""
+    with span("device.stage"):
+        return t.cpu().numpy()
+
+
+def _parse(data: bytes) -> j2k.Codestream:
+    """``j2k.parse_codestream``, as the ``j2k.parse`` span, counted."""
+    count("j2k.parses")
+    with span("j2k.parse"):
+        return j2k.parse_codestream(data)
+
+
+def _native_threads(blocks: int) -> int:
+    """Threads the native batched coder takes for ``blocks`` code-blocks,
+    as ``batch_threads`` in native/ebcot_native.cpp: ``GDCT_THREADS``,
+    else every CPU, at most one a block and 64."""
+    env = os.environ.get("GDCT_THREADS")
+    try:
+        want = int(env) if env is not None else os.cpu_count() or 1
+    except ValueError:
+        want = 1
+    return max(1, min(want, blocks, 64))
 
 
 class _AssembledTile(NamedTuple):
@@ -263,8 +291,15 @@ class J2KEncoder:
         coefficient arrays [C, th, tw] (raster tile order) computed
         elsewhere — e.g. the sharded multi-chip device stage
         (parallel/mesh.encode_frames_sharded) — which skip the transform
-        stage while keeping the FULL header/entropy/PCRD path.
+        stage while keeping the FULL header/entropy/PCRD path. One
+        ``j2k.frame`` span.
         """
+        with span("j2k.frame"):
+            return self._encode(pixels, width, height, components,
+                                bit_depth, signed, precomputed_tiles)
+
+    def _encode(self, pixels, width: int, height: int, components: int,
+                bit_depth: int, signed: bool, precomputed_tiles) -> bytes:
         p = self.params
         if p.container not in (None, "jp2", "jph"):
             # fail before the (potentially multi-second) encode runs,
@@ -565,12 +600,9 @@ class J2KEncoder:
                      split: bool = False, want_plt: bool = False):
         coeffs = self._tile_coeffs(arr, rect, cod, qcd, bit_depth, signed,
                                    use_mct, roi_shifts, precomputed_coeffs)
-        from ..utils.profiling import maybe_stage
-        with maybe_stage("j2k.encode.entropy"):
-            return self._encode_tile_entropy(coeffs, rect, cod, qcd,
-                                             bit_depth, roi_shifts,
-                                             split=split,
-                                             want_plt=want_plt)
+        return self._encode_tile_entropy(coeffs, rect, cod, qcd, bit_depth,
+                                         roi_shifts, split=split,
+                                         want_plt=want_plt)
 
     def _tile_coeffs(self, arr: np.ndarray, rect, cod: j2k.CodInfo,
                      qcd: j2k.QcdInfo, bit_depth: int, signed: bool,
@@ -580,15 +612,6 @@ class J2KEncoder:
                      ) -> np.ndarray:
         """Device stage for one tile: DC shift (+MCT) + DWT (+quant,
         +ROI pre-shift) → packed coefficient array [C, th, tw]."""
-        from ..utils.profiling import maybe_stage
-        with maybe_stage("j2k.encode.transform"):
-            return self._tile_coeffs_timed(arr, rect, cod, qcd, bit_depth,
-                                           signed, use_mct, roi_shifts,
-                                           precomputed_coeffs)
-
-    def _tile_coeffs_timed(self, arr, rect, cod, qcd, bit_depth, signed,
-                           use_mct, roi_shifts=None,
-                           precomputed_coeffs=None) -> np.ndarray:
         roi_shifts = roi_shifts or {}
         tx0, ty0, tx1, ty1 = rect
         ncomp = arr.shape[2] if arr is not None else \
@@ -689,10 +712,10 @@ class J2KEncoder:
         """Device (torch) tile transform: DC shift (+MCT) + DWT (+quant)."""
         p = self.params
         comps = _to_device(np.moveaxis(tile, -1, 0)[None], self.device)
-        coeffs = tile_coeffs_device(
+        coeffs = _to_host(tile_coeffs_device(
             comps, rect[0], rect[1], cod.num_levels, bit_depth, signed,
             use_mct, cod.transform == 1, p.mct_bindings, p.mct_matrix,
-            p.mct_offsets)[0].cpu().numpy()
+            p.mct_offsets)[0])
         if cod.transform == 1:
             return coeffs
         # per-band deadzone quantization with the QCD-encoded steps
@@ -941,9 +964,11 @@ class J2KEncoder:
             if ht_refine:
                 # batched SigProp/MagRef prep (one native round trip);
                 # refined blocks swap their cleanup source for u
-                preps = ht_refine_encode_blocks_native(
-                    [p[1] for p in pending_ht],
-                    bool(cod.cb_style & 0x08))
+                with span("j2k.t1",
+                          threads=_native_threads(len(pending_ht))):
+                    preps = ht_refine_encode_blocks_native(
+                        [p[1] for p in pending_ht],
+                        bool(cod.cb_style & 0x08))
                 for i, (st, blk_data, mb, w_, h_, dw_) in \
                         enumerate(pending_ht):
                     prep = preps[i] if preps is not None else \
@@ -955,8 +980,11 @@ class J2KEncoder:
                         u, dref, sp_len, nms = prep
                         ht_refine_info[id(st)] = (dref, sp_len, nms, dw_)
                         pending_ht[i] = (st, u, mb, w_, h_, dw_)
-            results = ht_cleanup_encode_blocks_native(
-                [p[1] for p in pending_ht], [p[2] for p in pending_ht])
+            with span("j2k.t1", threads=_native_threads(len(pending_ht))):
+                results = ht_cleanup_encode_blocks_native(
+                    [p[1] for p in pending_ht], [p[2] for p in pending_ht])
+            count("t1.blocks" if results is not None else "t1.scalar_blocks",
+                  len(pending_ht))
             for i, (st, blk_data, mb, w_, h_, dw_) in enumerate(pending_ht):
                 blob = results[i] if results is not None else \
                     ht_cleanup_encode_native(
@@ -979,10 +1007,12 @@ class J2KEncoder:
             wide = [p for p in pending if p[1].dtype == np.int64]
             fallback = []
             if narrow:
-                results = t1_encode_blocks_native(
-                    [p[1] for p in narrow], [p[2] for p in narrow],
-                    cod.cb_style, need_nmse=need_nmse)
+                with span("j2k.t1", threads=_native_threads(len(narrow))):
+                    results = t1_encode_blocks_native(
+                        [p[1] for p in narrow], [p[2] for p in narrow],
+                        cod.cb_style, need_nmse=need_nmse)
                 if results is not None:
+                    count("t1.blocks", len(narrow))
                     for (st, _, _, mb, dw), r in zip(narrow, results):
                         self._apply_t1_result(st, mb, dw, *r)
                 else:
@@ -995,6 +1025,8 @@ class J2KEncoder:
                     self._apply_t1_result(p[0], p[3], p[4], *r)
                 else:
                     fallback.append(p)
+            # one block at a time: the wide blocks, and the fallback's
+            count("t1.scalar_blocks", len(wide) + len(fallback))
             if fallback:
                 # native unavailable: per-block Python reference coder
                 for (st, blk_data, orient, mb, dw) in fallback:
@@ -1153,8 +1185,9 @@ class J2KEncoder:
             # trees, Lblock, bodies) in one call; Python below is the
             # byte-identical behavioral reference / native-disabled path
             from ..native import t2_assemble_packets_native
-            body_n = t2_assemble_packets_native(comp_states, order,
-                                                cod.cb_style)
+            with span("j2k.t2"):
+                body_n = t2_assemble_packets_native(comp_states, order,
+                                                    cod.cb_style)
             if body_n is not None:
                 return body_n
         # one loop for both layouts: with packed headers (split) the
@@ -1477,8 +1510,13 @@ class J2KDecoder:
         self.block_decoder_factory = factory
 
     def decode(self, data: bytes):
-        """→ (array [H, W, C] int32, SizInfo, CodInfo)."""
-        cs = j2k.parse_codestream(data)
+        """→ (array [H, W, C] int32, SizInfo, CodInfo), as one
+        ``j2k.frame`` span."""
+        with span("j2k.frame"):
+            return self._decode(data)
+
+    def _decode(self, data: bytes):
+        cs = _parse(data)
         siz = cs.siz
         _require_decodable_depths(siz)
         ncomp = len(siz.components)
@@ -1738,12 +1776,14 @@ class J2KDecoder:
         native_pos = None
         if not self.resilient and packed_hdrs is None:
             from ..native import t2_parse_packets_native
-            native_pos = t2_parse_packets_native(
-                bytes(body), comp_states, order,
-                [cc.cb_style for cc in cods], cod0.use_sop, cod0.use_eph,
-                pkt_skip=None if plt_skip is None else
-                [plt_lengths[i] if plt_skip[i] else -1
-                 for i in range(len(order))])
+            with span("j2k.t2"):
+                native_pos = t2_parse_packets_native(
+                    bytes(body), comp_states, order,
+                    [cc.cb_style for cc in cods], cod0.use_sop,
+                    cod0.use_eph,
+                    pkt_skip=None if plt_skip is None else
+                    [plt_lengths[i] if plt_skip[i] else -1
+                     for i in range(len(order))])
         if native_pos is None:
             pos = 0
             hpos = 0
@@ -1898,7 +1938,11 @@ class J2KDecoder:
                                  st.numbps, seg_lengths=st.seg_ends)
             return blk
 
+        scalar_blocks = 0
+
         def _scalar_and_paste(c, cod, is_ht, bg, ps, g, st):
+            nonlocal scalar_blocks
+            scalar_blocks += 1
             try:
                 blk = _scalar_block(c, cod, is_ht, bg, ps, g, st)
             except Exception:
@@ -1976,31 +2020,40 @@ class J2KDecoder:
                                 ctxs.append(ctx)
                             else:
                                 _scalar_and_paste(*ctx)
+        native_blocks = 0
         if ht_items:
-            results = ht_cleanup_decode_blocks_native(ht_items)
+            with span("j2k.t1", threads=_native_threads(len(ht_items))):
+                results = ht_cleanup_decode_blocks_native(ht_items)
             for i, ctx in enumerate(ht_ctx):
                 blk = results[i] if results is not None else None
                 if isinstance(blk, np.ndarray):
                     _paste(ctx[0], ctx[3], ctx[5], blk)
+                    native_blocks += 1
                 else:
                     _scalar_and_paste(*ctx)
         if htr_items:
-            results = ht_decode_blocks_refined_native(htr_items)
+            with span("j2k.t1", threads=_native_threads(len(htr_items))):
+                results = ht_decode_blocks_refined_native(htr_items)
             for i, ctx in enumerate(htr_ctx):
                 blk = results[i] if results is not None else None
                 if isinstance(blk, np.ndarray):
                     _paste(ctx[0], ctx[3], ctx[5], blk)
+                    native_blocks += 1
                 else:  # incl. status 900/901: exact error semantics
                     _scalar_and_paste(*ctx)
         for style, (items, ctxs) in t1_groups.items():
-            results = t1_decode_blocks_native(items, style,
-                                              ojp_recon=True)
+            with span("j2k.t1", threads=_native_threads(len(items))):
+                results = t1_decode_blocks_native(items, style,
+                                                  ojp_recon=True)
             for i, ctx in enumerate(ctxs):
                 blk = results[i] if results is not None else None
                 if isinstance(blk, np.ndarray):
                     _paste(ctx[0], ctx[3], ctx[5], blk)
+                    native_blocks += 1
                 else:
                     _scalar_and_paste(*ctx)
+        count("t1.blocks", native_blocks)
+        count("t1.scalar_blocks", scalar_blocks)
 
         # ROI unshift: MaxShift is mask-free (magnitude ≥ 2^Srgn ⇒ ROI);
         # General Scaling (Srgn=1) unshifts only coefficients under the
@@ -2148,17 +2201,17 @@ class J2KDecoder:
                     nat_rc = (_nat.dwt53_inv_native(pk, lv_c,
                                                     ctx0, cty0)
                               if _nat.get_lib() is not None else None)
-                    rc = nat_rc if nat_rc is not None else inv_stage(
-                        _to_device(pk[None], self.device), lv_c, ctx0,
-                        cty0, epilogue="coeffs")[0].cpu().numpy()
+                    rc = nat_rc if nat_rc is not None else _to_host(
+                        inv_stage(_to_device(pk[None], self.device), lv_c,
+                                  ctx0, cty0, epilogue="coeffs")[0])
                 else:
                     fp = dequantize_packed(
                         pk, (ctx0, cty0, ctx1, cty1), lv_c,
                         J2KEncoder._band_deltas(qcds[c], cod_c.num_levels,
                                                 depth))
-                    rc = inv97_stage(_to_device(fp[None], self.device),
-                                     lv_c, ctx0, cty0, signed=True,
-                                     epilogue="pixels")[0].cpu().numpy()
+                    rc = _to_host(inv97_stage(
+                        _to_device(fp[None], self.device), lv_c, ctx0, cty0,
+                        signed=True, epilogue="pixels")[0])
                 if (cth, ctw) != (th, tw):
                     up = np.asarray(rc)
                     ry = -(-th // max(cth, 1))
@@ -2170,7 +2223,7 @@ class J2KDecoder:
         if isinstance(rec, np.ndarray):
             rec = inv_dc_level_shift_np(rec, depth, signed)
         else:
-            rec = inv_dc_level_shift(rec, depth, signed).cpu().numpy()
+            rec = _to_host(inv_dc_level_shift(rec, depth, signed))
         tile_out = np.moveaxis(rec, 0, -1)
         return tile_out
 
@@ -2217,7 +2270,7 @@ def decode_to_packed(data: bytes, return_qcd: bool = False,
     """
     # cheap header-level rejection BEFORE any T1 work (the adapter
     # fallback would otherwise entropy-decode everything twice)
-    cs = j2k.parse_codestream(data)
+    cs = _parse(data)
     if len(cs.tiles) != 1:
         raise UnsupportedFormatError("packed decode is single-tile only")
     if cs.mct_segments or cs.mcc_segments or cs.mco_segments:
@@ -2251,7 +2304,7 @@ def decode_to_packed_tiles(data: bytes, reduce: int = 0):
     masks, both on the packed host coefficients exactly like the
     scalar decoder.
     """
-    cs = j2k.parse_codestream(data)
+    cs = _parse(data)
     siz = cs.siz
     _require_decodable_depths(siz)
     ncomp = len(siz.components)
@@ -2338,7 +2391,7 @@ def decode_to_component_tiles(data: bytes):
     Raises UnsupportedFormatError for Part-2 custom MCT streams (those
     are uniform by construction — decode_to_packed_tiles carries them).
     """
-    cs = j2k.parse_codestream(data)
+    cs = _parse(data)
     siz = cs.siz
     _require_decodable_depths(siz)
     ncomp = len(siz.components)

@@ -45,6 +45,7 @@ from .ops.mct import (ict_inverse_np, inv_dc_level_shift, rct_forward_np,
 from .ops.j2k97_inv_stage import inv97_stage
 from .ops.j2k_fwd_stage import fwd_stage
 from .ops.j2k_inv_stage import inv_stage, narrow_pixels
+from .utils.profiling import count, log_event, span
 
 INT16_MAX = 32767
 ENGINES = ("auto", "device", "host")
@@ -236,7 +237,6 @@ def transfer_policy(device: torch.device, force_remeasure: bool = False,
             "host_ms": round(host, 3),
         }
     _POLICY[key] = policy
-    from .utils.profiling import log_event
     log_event("pipeline.transfer_policy", policy)
     return policy
 
@@ -310,10 +310,12 @@ class _Chunk:
     def result(self) -> List[np.ndarray]:
         """The chunk's results as numpy copies, once its copies are done
         (a copy, since the pinned buffers serve a later chunk)."""
-        if self.done is not None:
-            self.done.synchronize()
+        with span("pipeline.wait"):
+            if self.done is not None:
+                self.done.synchronize()
         self.lane._unread[self.slot] = False
-        return [np.array(h.numpy()) for h in self.host]
+        with span("pipeline.readback"):
+            return [np.array(h.numpy()) for h in self.host]
 
 
 class _Lane:
@@ -355,6 +357,10 @@ class _Lane:
     def submit(self, stage, *arrays: np.ndarray) -> _Chunk:
         """Upload ``arrays`` and start ``stage(*tensors)``, which returns a
         tensor or a tuple of tensors on the device, and their copies back."""
+        with span("pipeline.submit"):
+            return self._submit(stage, arrays)
+
+    def _submit(self, stage, arrays) -> _Chunk:
         slot = self._next
         self._next = (slot + 1) % self.slots
         if self._unread[slot]:
@@ -368,7 +374,8 @@ class _Lane:
             outs = outs if isinstance(outs, tuple) else (outs,)
             return _Chunk(self, slot, None, outs, inputs)
         if self._busy[slot] is not None:
-            self._busy[slot].synchronize()   # its copies still read them
+            with span("pipeline.wait"):   # its copies still read them
+                self._busy[slot].synchronize()
         staged = []
         for i, a in enumerate(arrays):
             buf = self._buffer(slot, ("in", i), a.shape,
@@ -392,9 +399,10 @@ class _Lane:
     def rerun(self, chunk: _Chunk, stage) -> np.ndarray:
         """``stage`` again on a finished chunk's device inputs, on the
         lane's stream, read back before returning."""
+        count("pipeline.reruns")
         if not self.cuda:
             return stage(*chunk.inputs).numpy()
-        with torch.cuda.stream(self.stream):
+        with span("pipeline.wait"), torch.cuda.stream(self.stream):
             return stage(*chunk.inputs).cpu().numpy()
 
 
@@ -526,40 +534,48 @@ def encode_frames_pipelined(frames, bit_depth: int = 16,
             coeffs = fetch(pending)   # waits for chunk ci's copies
             pending = nxt
         for k in range(coeffs.shape[0]):
-            frame_coeffs = coeffs[k] if rgb else coeffs[k : k + 1]
-            split = bool(enc.params.packed_headers)
-            want_plt = bool(enc.params.plt_markers)
-            res = enc._encode_tile_entropy(frame_coeffs, (0, 0, w, h),
-                                           cod, qcd, bit_depth,
-                                           split=split, want_plt=want_plt)
-            if split or want_plt:  # PPT/PLT tile-part header segments
-                head = b""
-                if split:
-                    head += j2kcs.write_ppt(res.headers)
-                if want_plt:
-                    head += j2kcs.write_plt_segments(res.pkt_lengths)
-                tp = j2kcs.write_tile_part(0, res.body,
-                                           head_segments=head)
-            else:
-                tp = j2kcs.write_tile_part(0, res)
-            tlm = b""
-            if getattr(enc.params, "tlm_markers", False):
-                # Ptlm covers the whole tile-part incl. PPT/PLT segs
-                tlm = j2kcs.write_tlm(0, [(0, len(tp))])
-            stream = (bytes(header) + tlm + tp
-                      + j2kcs.EOC.to_bytes(2, "big"))
-            if enc.params.container is not None:
-                # same JP2/JPH wrapping as J2KEncoder.encode — the
-                # pipelined path must emit identical bytes per params
-                stream = j2kcs.wrap_jp2(stream,
-                                        brand=enc.params.container)
-            out.append(stream)
+            with span("j2k.frame"):
+                out.append(_encode_frame_stream(
+                    enc, coeffs[k] if rgb else coeffs[k : k + 1], w, h,
+                    cod, qcd, bit_depth, header))
     _log_call("pipeline.encode", use_host, f, len(chunks))
     return out
 
 
+def _encode_frame_stream(enc, frame_coeffs: np.ndarray, w: int, h: int,
+                         cod, qcd, bit_depth: int, header: bytes) -> bytes:
+    """One frame's host stage in the encode pipeline: T1, T2 and the
+    codestream around the main header."""
+    from .codestream import j2k as j2kcs
+
+    split = bool(enc.params.packed_headers)
+    want_plt = bool(enc.params.plt_markers)
+    res = enc._encode_tile_entropy(frame_coeffs, (0, 0, w, h), cod, qcd,
+                                   bit_depth, split=split,
+                                   want_plt=want_plt)
+    if split or want_plt:  # PPT/PLT tile-part header segments
+        head = b""
+        if split:
+            head += j2kcs.write_ppt(res.headers)
+        if want_plt:
+            head += j2kcs.write_plt_segments(res.pkt_lengths)
+        tp = j2kcs.write_tile_part(0, res.body, head_segments=head)
+    else:
+        tp = j2kcs.write_tile_part(0, res)
+    tlm = b""
+    if getattr(enc.params, "tlm_markers", False):
+        # Ptlm covers the whole tile-part incl. PPT/PLT segs
+        tlm = j2kcs.write_tlm(0, [(0, len(tp))])
+    stream = bytes(header) + tlm + tp + j2kcs.EOC.to_bytes(2, "big")
+    if enc.params.container is not None:
+        # same JP2/JPH wrapping as J2KEncoder.encode — the pipelined path
+        # must emit identical bytes per params
+        stream = j2kcs.wrap_jp2(stream, brand=enc.params.container)
+    return stream
+
+
 def _log_call(name: str, use_host: bool, frames: int, chunks: int) -> None:
-    from .utils.profiling import log_event
+    count("pipeline.chunks", chunks)
     log_event(name, {"engine": "host" if use_host else "device",
                      "frames": frames, "chunks": chunks})
 
@@ -599,8 +615,9 @@ def decode_frames_pipelined(streams, chunk: int = 8,
     def host_stage(group):
         packs = []
         for s in group:
-            packed, siz, cod, qcd = decode_to_packed(s, return_qcd=True,
-                                                     reduce=reduce)
+            with span("j2k.frame"):
+                packed, siz, cod, qcd = decode_to_packed(
+                    s, return_qcd=True, reduce=reduce)
             m = (packed.shape, cod.num_levels - reduce, rdiv(siz.xosiz),
                  rdiv(siz.yosiz),
                  siz.components[0][:2], cod.mct, cod.transform, qcd)
@@ -630,7 +647,8 @@ def decode_frames_pipelined(streams, chunk: int = 8,
     lane = None if use_host else _Lane(device)
     prev = None  # chunk pending readback
     for group in groups:
-        batch = host_stage(group)  # host T1 (+dequant) for THIS chunk
+        with span("pipeline.host_stage"):
+            batch = host_stage(group)  # host T1 (+dequant) for THIS chunk
         (shape, levels, x0, y0, (bits, signed), mct, transform,
          _qcd) = global_meta[0]
         if use_host:
