@@ -92,10 +92,47 @@ def is_copy(name: str) -> bool:
     return name.startswith(("Memcpy", "Memset"))
 
 
-def seconds_by_name(events: Iterable[Tuple[str, float, float]]) -> dict:
+def split_seconds(sources: Sequence[Iterable[Tuple[str, float, float]]]
+                  ) -> dict:
+    """Device seconds of each operation name, from the events of several
+    sources: processes, each with a CUDA context of its own. The card runs
+    the contexts' kernels in turns, and their copies in turns on the copy
+    engines, so an event's span may hold other contexts' turns. Each
+    instant of an engine (kernels, or copies and fills) goes to the source
+    whose open operation there started last, since an operation starts
+    only on its context's turn: a short kernel that ran inside another
+    context's long one keeps its span, the long one loses it. A source's
+    own operations that overlap (the streams of one context, which run at
+    once) each take the instant in full. One source gives each event its
+    whole span."""
+    points = []
+    for w, events in enumerate(sources):
+        for n, s, e in events:
+            if e > s:
+                points += [(s, 1, w, n), (e, 0, w, n)]
+    points.sort(key=lambda p: (p[0], p[1]))
+    # per engine and source: {name: [open count, latest start]}
+    open_ops: dict = {}
     out: dict = {}
-    for n, s, e in events:
-        out[n] = out.get(n, 0.0) + (e - s)
+    last = None
+    for t, starts, w, n in points:
+        if last is not None and t > last:
+            for by_source in open_ops.values():
+                mine = [ops for ops in by_source.values() if ops]
+                if mine:
+                    ops = max(mine, key=lambda o: max(v[1]
+                                                      for v in o.values()))
+                    for name, (count, _) in ops.items():
+                        out[name] = out.get(name, 0.0) + (t - last) * count
+        last = t
+        ops = open_ops.setdefault(is_copy(n), {}).setdefault(w, {})
+        count, latest = ops.get(n, (0, t))
+        if starts:
+            ops[n] = (count + 1, t)
+        elif count > 1:
+            ops[n] = (count - 1, latest)
+        else:
+            del ops[n]
     return out
 
 

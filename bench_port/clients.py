@@ -1,5 +1,6 @@
-"""The clients of a cell: each builds its own registry and corpus, warms
-its calls and then runs a closed loop of codec calls until the deadline.
+"""A client of a cell, one to a worker process (``worker.py``): it builds
+its own registry and corpus, warms its calls and then runs a closed loop
+of codec calls until the deadline.
 
 A client drives ``make_registry(device, engine=...)`` and the codec of
 its configuration's transfer syntax, with ``MemoryPixelData`` objects

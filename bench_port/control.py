@@ -7,8 +7,9 @@ runs never run it.
     python3 -m bench_port.control --workload <cell> --seeds 1,2,3 \
         [--seconds 10] [--sound]
 
-Each seed runs in this process after the last; ``--sound`` runs the
-program as configured instead, for the lower readings. One line a seed:
+Each seed runs after the last, with worker processes of its own, as
+``bench_port.run`` starts them; ``--sound`` runs the program as
+configured instead, for the lower readings. One line a seed:
 ``CONTROL {json}`` with the compared numbers and the verdict.
 """
 

@@ -1,4 +1,5 @@
-"""90th percentile of a encode call's time, from the harness's spans."""
+"""90th percentile of a encode call's time, on the harness's clock
+around each call of every client."""
 
 from bench_port.readers import call_p90_ms
 

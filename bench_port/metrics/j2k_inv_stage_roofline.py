@@ -1,22 +1,9 @@
 """The 5/3 inverse stage's kernel as a share of its HBM bound: the bytes
 of the traced decode frames' stage (``arith.stage_bytes_per_frame``) over
-the device time of the kernels named ``inv_stage_kernel`` alone.
-``decode_stage_roofline`` divides the same bytes by every kernel's time,
-a T1 decode kernel's too."""
+the device time of the kernels named ``inv_stage_kernel`` alone."""
 
-from bench_port import arith
-
-KERNEL = "inv_stage_kernel"
+from bench_port.readers import stage_roofline
 
 
 def read(run):
-    tr = run["trace"]
-    if tr is None:
-        return None
-    frames = arith.frames_within(run["calls"], tr["t0"], tr["t1"], "decode")
-    kernel_s = sum(e - s for n, s, e in tr["events"] if KERNEL in n)
-    f = run["config"]["frame"]
-    per = arith.stage_bytes_per_frame(f["rows"], f["columns"],
-                                      f["samples_per_pixel"],
-                                      f["bits_allocated"], f["bits_stored"])
-    return arith.roofline_share(frames, per, kernel_s)
+    return stage_roofline(run, "decode", "inv_stage_kernel")

@@ -2,6 +2,7 @@
 decode frame; nothing where no such kernel ran."""
 
 from bench_port import arith
+from bench_port.readers import kernel_seconds
 
 KERNEL = "t1_warp_kernel"
 
@@ -11,7 +12,7 @@ def read(run):
     if tr is None:
         return None
     frames = arith.frames_within(run["calls"], tr["t0"], tr["t1"], "decode")
-    kernel_s = sum(e - s for n, s, e in tr["events"] if KERNEL in n)
+    kernel_s = kernel_seconds(tr, KERNEL)
     if kernel_s <= 0 or frames <= 0:
         return None
     return kernel_s * 1e6 / frames

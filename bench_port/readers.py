@@ -33,8 +33,9 @@ def _traced(run: dict, op: str):
 
 
 def host_cpu_ms_per_frame(run: dict, op: str) -> Optional[float]:
-    """CPU time of the process (user and system, every thread) over the
-    part of the window outside the profiler, a frame of that part."""
+    """CPU time of the workers (user and system, every thread of every
+    worker) over the part of the window outside the profiler, a frame of
+    that part."""
     tr, inside = _traced(run, op)
     if tr is None:
         return None
@@ -51,21 +52,28 @@ def copy_us_per_frame(run: dict, op: str) -> Optional[float]:
     tr, frames = _traced(run, op)
     if tr is None or frames <= 0:
         return None
-    copies = [ev for ev in tr["events"] if arith.is_copy(ev[0])]
+    copies = [v for n, v in tr["device_s"].items() if arith.is_copy(n)]
     if not copies:
         return None
-    return sum(e - s for _, s, e in copies) * 1e6 / frames
+    return sum(copies) * 1e6 / frames
 
 
-def stage_roofline(run: dict, op: str) -> Optional[float]:
+def kernel_seconds(tr: dict, kernel: str) -> float:
+    """Device seconds of the traced kernels whose name holds ``kernel``
+    (``trace["device_s"]``: the workers' contexts ran in turns, and
+    ``arith.split_seconds`` gives each instant to one of them)."""
+    return sum(v for n, v in tr["device_s"].items() if kernel in n)
+
+
+def stage_roofline(run: dict, op: str, kernel: str) -> Optional[float]:
     """Percent of the HBM bound: the bytes of the traced frames' 5/3 stage
-    (``arith.stage_bytes_per_frame``) over the device time of every
-    kernel that is not a copy."""
+    (``arith.stage_bytes_per_frame``) over the device time of the kernels
+    whose name holds ``kernel``, the stage's own; nothing where no such
+    kernel ran."""
     tr, frames = _traced(run, op)
     if tr is None:
         return None
-    kernel_s = sum(e - s for n, s, e in tr["events"]
-                   if not arith.is_copy(n))
+    kernel_s = kernel_seconds(tr, kernel)
     f = run["config"]["frame"]
     per = arith.stage_bytes_per_frame(f["rows"], f["columns"],
                                       f["samples_per_pixel"],

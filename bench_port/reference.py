@@ -47,6 +47,19 @@ def compare_frames(outputs: Iterable[Tuple[Sequence[bytes], np.ndarray]]
             "mismatched_samples": mismatched, "max_abs_diff": worst}
 
 
+def add_judged(parts: Sequence[dict]) -> dict:
+    """``compare_frames``'s readings of several parts of the outputs as
+    one reading of them all: the counts summed, the largest difference
+    the largest of any part."""
+    out = {"frames_checked": 0, "frames_missing": 0,
+           "mismatched_samples": 0, "max_abs_diff": 0}
+    for part in parts:
+        for k in out:
+            out[k] = max(out[k], part[k]) if k == "max_abs_diff" \
+                else out[k] + part[k]
+    return out
+
+
 def _decode_one(stream: bytes):
     """The plain decoder's samples of one codestream, or its refusal."""
     from . import j2k_reference

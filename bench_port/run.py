@@ -3,21 +3,25 @@
     python3 -m bench_port.run --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
-The cell's clients are threads of this one process, the only process on
-the card. Each builds ``go_dicom_codec_torch.make_registry(cuda:0,
-engine=...)``, makes its corpus from (seed, client), and warms its calls,
-all clients at once; set-up stops unless those calls took the configured
-route and wrote codestreams with the configuration's parameters. Then all
-of them run closed loops of codec calls over one window of
-``--seconds``. With ``--trace 1`` the middle half of the window runs
-under torch.profiler and the per-layer metrics are read; otherwise the
-end-to-end ones. After the window the outputs of the calls are judged
-against the reference (``reference.py``): a decode's sample of calls
-drawn from the seed, an encode's frames drawn from the seed over every
-stretch of a call, with every output of an object the same bytes.
+Each of the cell's clients is a worker process of its own
+(``worker.py``), started with ``spawn`` at once and pinned to a core pair
+of the run's CPUs; this process does not load torch to run a cell. Worker
+0 builds the program while the others import; then each worker builds
+``go_dicom_codec_torch.make_registry(cuda:0, engine=...)``, makes its
+corpus from (seed, client) and warms its calls, all at once; set-up stops
+unless those calls took the configured route and wrote codestreams with
+the configuration's parameters. Then all of them run closed loops of
+codec calls over one window of ``--seconds``. With ``--trace 1`` the
+middle half of the window runs under each worker's torch.profiler and the
+per-layer metrics are read; otherwise the end-to-end ones. After the
+window the outputs of the calls are judged against the reference
+(``reference.py``): a decode's sample of calls drawn from the seed, an
+encode's frames drawn from the seed over every stretch of a call, with
+every output of an object the same bytes.
 
-Earlier lines on standard error describe the machine and the route the
-calls took; the last line on standard output is the result, JSON.
+Earlier lines on standard error describe the machine, the workers and the
+route the calls took; the last line on standard output is the result,
+JSON.
 """
 
 from __future__ import annotations
@@ -68,6 +72,19 @@ def set_host_threads(cfg: dict) -> None:
     os.environ["GDCT_THREADS"] = str(threads["native_per_client"])
 
 
+def client_cpus(cpus: list, clients: int) -> list:
+    """The CPUs each client's worker pins itself to: a pair of the run's
+    CPUs each where they hold two a client, else the CPUs cut evenly, a
+    CPU shared where there are fewer CPUs than clients."""
+    n = len(cpus)
+    if n >= 2 * clients:
+        return [cpus[2 * i:2 * i + 2] for i in range(clients)]
+    if n >= clients:
+        return [cpus[i * n // clients:(i + 1) * n // clients]
+                for i in range(clients)]
+    return [[cpus[i % n]] for i in range(clients)]
+
+
 def _parallel(fns) -> None:
     """Run the callables in threads and raise the first error."""
     errors = []
@@ -89,7 +106,8 @@ def _parallel(fns) -> None:
 def build_program(on_card: bool) -> dict:
     """Build the program's native library and, for the card, its CUDA
     kernels (a no-op once built in this checkout): fixed paths inside the
-    checkout."""
+    checkout, built by worker 0 alone before any other worker loads
+    them."""
     from go_dicom_codec_torch import _kernels, native
 
     t0 = time.perf_counter()
@@ -104,56 +122,93 @@ def build_program(on_card: bool) -> dict:
     return out
 
 
-def warm_and_check_route(clients, cfg: dict, on_card: bool,
-                         check: bool) -> dict:
-    """Every client's warm calls, all at once. With ``check`` they must
-    have taken the configured route: the configured kernel launched (on
-    the card; on the CPU the kernels' plain versions run and count
-    nothing), and a pipelined call's ``pipeline.<op>`` event naming the
-    configured engine. Returns the event, the launches per frame and each
-    client's first warm output."""
-    from go_dicom_codec_torch import _kernels
-    from go_dicom_codec_torch.utils import profiling
+class Workers:
+    """The cell's worker processes and their pipes; ``close`` stops and
+    waits for every one of them."""
 
-    op = clients[0].op
-    profiling.EVENTS.pop(f"pipeline.{op}", None)
-    _kernels.reset_launch_counts()
-    warm = int(clients[0].mix["warm_calls_per_client"])
-    outs: dict = {}
-    _parallel([lambda c=c: outs.setdefault(c.index, [
-        c.call(k) for k in range(warm)]) for c in clients])
-    frames = sum(len(o.frames) for got in outs.values() for o in got)
-    launches = {k: v / frames for k, v in _kernels.launch_counts.items()
-                if v}
-    event = profiling.EVENTS.get(f"pipeline.{op}")
-    if check:
-        kernel = cfg["route"][op]
-        if on_card and not launches.get(kernel):
-            raise RuntimeError(f"route: the warm {op} calls launched "
-                               f"{launches}, not {kernel}")
-        multi = max(len(o.frames) for got in outs.values() for o in got)
-        if multi > 1 and (event is None
-                          or event["engine"] != cfg["engine"]):
-            raise RuntimeError(f"route: the warm {op} calls of {multi} "
-                               f"frames logged {event}, not the "
-                               f"{cfg['engine']} engine")
-    return {"event": event, "launches_per_frame": launches,
-            "first": {i: got[0] for i, got in outs.items()}}
+    def __init__(self, jobs: list) -> None:
+        import multiprocessing
+
+        from . import worker
+
+        ctx = multiprocessing.get_context("spawn")
+        self.procs, self.conns = [], []
+        for job in jobs:
+            mine, theirs = ctx.Pipe()
+            p = ctx.Process(target=worker.serve, args=(theirs, job),
+                            daemon=True)
+            p.start()
+            theirs.close()
+            self.procs.append(p)
+            self.conns.append(mine)
+
+    def send(self, *msg) -> None:
+        for conn in self.conns:
+            conn.send(msg)
+
+    def receive(self, kind: str) -> list:
+        """Each worker's next message, which must be ``kind``; a worker
+        that reports an error or ends without a word raises."""
+        got = []
+        for i, (conn, p) in enumerate(zip(self.conns, self.procs)):
+            try:
+                msg = conn.recv()
+            except EOFError:
+                p.join(10)
+                raise RuntimeError(f"worker {i} ended (exit code "
+                                   f"{p.exitcode}) without a result")
+            if msg[0] != kind:
+                raise RuntimeError(f"worker {i}: {msg[1]}")
+            got.append(msg[1])
+        return got
+
+    def close(self) -> None:
+        for conn, p in zip(self.conns, self.procs):
+            if p.is_alive():
+                try:
+                    conn.send(("stop",))
+                except OSError:
+                    pass
+            conn.close()
+        for p in self.procs:
+            p.join(60)
+            if p.is_alive():
+                p.terminate()
+                p.join()
 
 
-def check_codestreams(clients, first: dict, cfg: dict) -> None:
-    """The first codestream of each client (its corpus for a decode, its
-    first warm output for an encode) must carry the configuration's frame
-    and coding parameters."""
-    from . import reference
+def merge(results: list) -> dict:
+    """One run's records from the workers' results: the calls in the order
+    of ``t0``; the CPU seconds of every worker summed, as ``(0, sum)``; the
+    traced stretch every worker covered, with every worker's device events
+    clipped to it (``events``: a reader that unions them counts two
+    contexts' overlapping operations once), the device seconds of each
+    operation name split among the contexts that ran in turns
+    (``device_s``, ``arith.split_seconds``) and their CPU there summed."""
+    from . import arith
 
-    for c in clients:
-        stream = (c.inputs[0] if c.op == "decode" else first[c.index])\
-            .frames[0]
-        wrong = reference.header_mismatches(stream, cfg)
-        if wrong:
-            raise RuntimeError(f"codestream of client {c.index} is not the "
-                               f"configuration's: {'; '.join(wrong)}")
+    calls = sorted((c for r in results for c in r["calls"]),
+                   key=lambda c: c["t0"])
+    run = {"calls": calls, "cpu": (0.0, sum(r["cpu"] for r in results)),
+           "trace": None}
+    traces = [r["trace"] for r in results if r["trace"] is not None]
+    if traces:
+        lo = max(tr["t0"] for tr in traces)
+        hi = min(tr["t1"] for tr in traces)
+        sources = [[(n, max(s, lo), min(e, hi)) for n, s, e in tr["events"]
+                    if min(e, hi) > max(s, lo)] for tr in traces]
+        run["trace"] = {"t0": lo, "t1": hi,
+                        "cpu": (0.0, sum(tr["cpu"] for tr in traces)),
+                        "events": [ev for src in sources for ev in src],
+                        "device_s": arith.split_seconds(sources)}
+    if any("spans" in r for r in results):
+        run["spans"] = [s for r in results for s in r.get("spans", [])]
+        counters: dict = {}
+        for r in results:
+            for k, v in r.get("counters", {}).items():
+                counters[k] = counters.get(k, 0) + v
+        run["counters"] = counters
+    return run
 
 
 def breakdown(run: dict) -> dict:
@@ -162,8 +217,7 @@ def breakdown(run: dict) -> dict:
     from . import arith
 
     tr = run["trace"]
-    ops = sorted(arith.seconds_by_name(tr["events"]).items(),
-                 key=lambda kv: -kv[1])[:10]
+    ops = sorted(tr["device_s"].items(), key=lambda kv: -kv[1])[:10]
     calls = run["calls"]
     named = []
     for s, e in sorted(arith.gaps(tr["events"], tr["t0"], tr["t1"]),
@@ -175,149 +229,123 @@ def breakdown(run: dict) -> dict:
     return {"device_ops": [[n, v] for n, v in ops], "idle_gaps": named}
 
 
+def _rounded(phases: dict) -> str:
+    return json.dumps({k: round(v, 3) for k, v in phases.items()})
+
+
+def _cuda_initialized() -> bool:
+    torch = sys.modules.get("torch")
+    return bool(torch is not None and torch.cuda.is_initialized())
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              control: bool = False, device=None, root=spec.ROOT,
-             here=spec.HERE) -> dict:
+             here=spec.HERE, spans: bool = False) -> dict:
     """Run ``workload`` once; returns the result and what it was read
     from. ``root`` holds BENCHMARK.json and ``here`` the configs, mixes and
-    readers. ``device`` other than the card is for the harness's own
-    tests (no card check, no traced window)."""
+    readers. ``device`` other than the card (a torch device or its name)
+    is for the harness's own tests (no card check, no traced window).
+    ``control`` runs the configuration's control in place of its transfer
+    syntax (``control.py``); ``spans`` installs the program's recorder in
+    each worker from the end of its set-up until its client has stopped
+    (``spans.py``)."""
     phases = {"start": time.perf_counter() - T_PROCESS}
     bench = spec.load_benchmark(root)
     cell = spec.find_cell(bench, workload)
     cfg = spec.load_config(cell["config"], here)
     mix = spec.load_traffic(cell["traffic"], here)
-    set_host_threads(cfg)
+    n = int(mix["clients"])
+    cpus = client_cpus(sorted(os.sched_getaffinity(0)), n)
+    cuda_at_start = _cuda_initialized()
+    dev = "cuda:0" if device is None else str(device)
+    on_card = dev.startswith("cuda")
+    t = time.perf_counter()
+    workers = Workers([{
+        "index": i, "seed": seed, "cfg": cfg, "mix": mix, "here": str(here),
+        "device": dev, "control": control, "trace": trace, "spans": spans,
+        "cpus": cpus[i], "build": i == 0} for i in range(n)])
+    phases["spawn"] = time.perf_counter() - t
+    try:
+        from . import arith, host, reference
 
-    t = time.perf_counter()
-    import numpy as np
-    import torch
-    phases["imports"] = time.perf_counter() - t
-
-    if device is None:
-        if not torch.cuda.is_available() \
-                or torch.cuda.device_count() < cell["chips"]:
-            raise SystemExit(f"no result: this cell needs {cell['chips']} "
-                             f"CUDA device(s), found "
-                             f"{torch.cuda.device_count()}")
-        device = torch.device("cuda", 0)
-    on_card = device.type == "cuda"
-    from . import arith, host, reference
-    from .clients import Client, set_native_threads
-
-    threads = cfg["host_threads"]
-    log(f"host: {host.affinity_count()} CPUs in this process's affinity, "
-        f"cgroup cpu.max {host.cpu_max()!r}; {mix['clients']} client "
-        f"threads, GDCT_THREADS {threads['native_per_client']} each "
-        f"({threads['setup_native_per_client']} in the corpus encode), "
-        f"torch threads {threads['torch']}, OMP_NUM_THREADS "
-        f"{threads['omp']}")
-    torch.set_num_threads(int(threads["torch"]))
-    t = time.perf_counter()
-    built = build_program(on_card)
-    phases["build"] = time.perf_counter() - t
-    import go_dicom_codec_torch as gdc
-
-    t = time.perf_counter()
-    clients = [Client(i, seed, cfg, mix, device, gdc, control=control)
-               for i in range(int(mix["clients"]))]
-    phases["registries"] = time.perf_counter() - t
-    t = time.perf_counter()
-    _parallel([c.make_corpus for c in clients])
-    phases["corpus"] = time.perf_counter() - t
-    t = time.perf_counter()
-    set_native_threads(threads["setup_native_per_client"])
-    _parallel([c.encode_corpus for c in clients])
-    set_native_threads(threads["native_per_client"])
-    phases["corpus_encode"] = time.perf_counter() - t
-    t = time.perf_counter()
-    route = warm_and_check_route(clients, cfg, on_card, not control)
-    if not control:
-        check_codestreams(clients, route["first"], cfg)
-    if on_card:
-        torch.cuda.synchronize()
-    phases["warm"] = time.perf_counter() - t
-    tracer = None
-    if trace and on_card:
-        from .trace import Tracer
+        threads = cfg["host_threads"]
+        log(f"host: {host.affinity_count()} CPUs in this process's "
+            f"affinity, cgroup cpu.max {host.cpu_max()!r}; {n} worker "
+            f"processes, one a client, GDCT_THREADS "
+            f"{threads['native_per_client']} each "
+            f"({threads['setup_native_per_client']} in the corpus encode), "
+            f"torch threads {threads['torch']}, OMP_NUM_THREADS "
+            f"{threads['omp']}; torch.cuda initialized in this process "
+            f"when the workers started: {cuda_at_start}")
         t = time.perf_counter()
-        tracer = Tracer(torch)
-        tracer.warm()
-        phases["profiler"] = time.perf_counter() - t
-    log(f"set-up: {json.dumps({k: round(v, 3) for k, v in phases.items()})}"
-        f", kernels built {built['kernels']}")
-    log(f"route: {mix['op']} through make_registry({device}, engine="
-        f"{cfg['engine']!r}).get_codec({clients[0].uid}); "
-        + f"event {json.dumps(route['event'])}, kernel launches a frame "
-        f"{json.dumps(route['launches_per_frame'])}"
-        + (" (the control's lossy path)" if control else
-           "; codestreams carry the configuration's parameters"))
-    if mix["op"] == "decode":
-        per = [round(c.compressed_bytes_per_frame(), 1) for c in clients]
-        raw = cfg["frame"]["rows"] * cfg["frame"]["columns"] * \
-            cfg["frame"]["bits_allocated"] // 8
-        log(f"corpus: compressed bytes a frame by client {per}, ratio "
-            f"{raw * len(per) / sum(per):.3f}:1")
+        imported = workers.receive("imported")
+        phases["imports_and_build"] = time.perf_counter() - t
+        if on_card and imported[0]["cards"] < cell["chips"]:
+            raise SystemExit(f"no result: this cell needs {cell['chips']} "
+                             f"CUDA device(s), found {imported[0]['cards']}")
+        built = imported[0]["built"]
+        workers.send("go")
+        t = time.perf_counter()
+        ready = workers.receive("ready")
+        phases["workers"] = time.perf_counter() - t
+        log(f"set-up: {_rounded(phases)}, kernels built {built['kernels']}")
+        for i, r in enumerate(ready):
+            log(f"worker {i}: pid {r['pid']}, CPUs {r['cpus']}, set-up "
+                f"{_rounded(r['phases'])}")
+        log(f"route: {mix['op']} through make_registry({dev}, engine="
+            f"{cfg['engine']!r}).get_codec({ready[0]['uid']}); client 0's "
+            f"event {json.dumps(ready[0]['event'])}, kernel launches a "
+            f"frame {json.dumps(ready[0]['launches_per_frame'])}"
+            + (" (the control's lossy path)" if control else
+               "; every client's route and codestreams checked"))
+        if mix["op"] == "decode":
+            per = [round(r["compressed_bytes_per_frame"], 1) for r in ready]
+            raw = cfg["frame"]["rows"] * cfg["frame"]["columns"] * \
+                cfg["frame"]["bits_allocated"] // 8
+            log(f"corpus: compressed bytes a frame by client {per}, ratio "
+                f"{raw * len(per) / sum(per):.3f}:1")
 
-    from go_dicom_codec_torch import _kernels
-    _kernels.reset_launch_counts()
-    # a mix may bring a client loop of its own kind (traffic/<module>.py)
-    own = spec.load_loop(mix, here)
-    start = time.perf_counter() + 0.05
-    deadline = start + seconds
-    setup_s = start - T_PROCESS
-    cpu_start = time.process_time()
-    loops = [threading.Thread(
-        target=own.loop if own else Client.loop, args=(c, start, deadline))
-        for c in clients]
-    for th in loops:
-        th.start()
-    if tracer is not None:
-        time.sleep(max(0.0, start + seconds / 4 - time.perf_counter()))
-        tracer.start()
-        time.sleep(max(0.0, start + 3 * seconds / 4 - time.perf_counter()))
-        tracer.stop()
-    for th in loops:
-        th.join()
-    cpu_end = time.process_time()
-    calls = sorted((r for c in clients for r in c.calls),
-                   key=lambda r: r["t0"])
-    memory_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
-    found = forbidden_modules()
+        start = time.perf_counter() + 0.05
+        deadline = start + seconds
+        setup_s = start - T_PROCESS
+        workers.send("window", start, deadline, start + seconds / 4,
+                     start + 3 * seconds / 4)
+        results = workers.receive("done")
+    finally:
+        workers.close()
+
+    found = sorted({m for r in results for m in r["forbidden"]})
     if found:
-        raise SystemExit(f"no result: the run loaded {found}")
+        raise SystemExit(f"no result: a worker loaded {found}")
+    run = {"workload": workload, "config": cfg, "traffic": mix,
+           "start": start, "deadline": deadline, "setup_s": setup_s,
+           **merge(results)}
+    calls = run["calls"]
+    launches: dict = {}
+    for r in results:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
     frames = sum(r["frames"] for r in calls) or 1
-    log(f"window: process CPU {cpu_end - cpu_start:.3f} s; kernel launches "
-        f"a frame, all clients "
-        + json.dumps({k: v / frames for k, v in
-                      _kernels.launch_counts.items() if v}))
+    log(f"window: worker CPU {run['cpu'][1]:.3f} s; kernel launches a "
+        f"frame, all clients "
+        + json.dumps({k: v / frames for k, v in launches.items()}))
     if mix["op"] == "encode":
-        sizes = [len(s) for c in clients for frames in c.first.values()
-                 for s in frames]
+        sizes = [s for r in results for s in r["first_sizes"]]
         log(f"window: compressed bytes a frame of the first encodes "
-            f"{float(np.mean(sizes)) if sizes else 0.0:.1f}")
-    for c in clients:
-        c.release()
+            f"{sum(sizes) / len(sizes) if sizes else 0.0:.1f}")
     if on_card:
-        torch.cuda.empty_cache()
         # nvidia-smi once the window has closed, outside the set-up
         log(f"card: {host.card_line()}")
 
-    run = {"workload": workload, "config": cfg, "traffic": mix,
-           "calls": calls, "start": start, "deadline": deadline,
-           "setup_s": setup_s, "cpu": (cpu_start, cpu_end), "trace": None}
-    device_info = {"platform": "gpu" if on_card else device.type,
-                   "kind": torch.cuda.get_device_name(device) if on_card
-                   else "cpu",
+    device_info = {"platform": "gpu" if on_card else dev,
+                   "kind": ready[0]["kind"] if on_card else "cpu",
                    "count": cell["chips"],
-                   "memory_peak_bytes": int(memory_peak)}
-    if tracer is not None:
-        events = tracer.device_events()
-        run["trace"] = {"t0": tracer.t0, "t1": tracer.t1,
-                        "cpu": (tracer.cpu0, tracer.cpu1),
-                        "events": events}
-        device_info["busy_s"] = arith.busy_seconds(events)
-        device_info["window_s"] = tracer.t1 - tracer.t0
+                   # the card holds every worker's memory at once
+                   "memory_peak_bytes": sum(r["memory_peak_bytes"]
+                                            for r in results)}
+    if run["trace"] is not None:
+        device_info["busy_s"] = arith.busy_seconds(run["trace"]["events"])
+        device_info["window_s"] = run["trace"]["t1"] - run["trace"]["t0"]
 
     limits = dict(reference.LOSSLESS_LIMITS)
     if mix["op"] == "encode":
@@ -325,22 +353,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         # over every stretch of a call and every client, judge each
         # object's first output; every later output of the object must be
         # the same bytes
-        items = []
-        for ci, obj, i in reference.encode_picks(
-                seed, len(clients), int(mix["objects_per_client"]),
-                int(mix["frames_per_call"]),
-                int(mix["check"]["frames_per_client"])):
-            c = clients[ci]
-            streams = c.first.get(obj, [])
-            items.append((streams[i] if i < len(streams) else None,
-                          c.frames[obj][i]))
         judged = reference.compare_encoded(
-            items, workers=min(8, host.affinity_count()))
-        judged["frames_differing"] = sum(c.differing for c in clients)
+            [item for r in results for item in r["items"]],
+            workers=min(8, host.affinity_count()))
+        judged["frames_differing"] = sum(r["differing"] for r in results)
         limits["frames_differing"] = 0
     else:
-        judged = reference.compare_frames(
-            (out.frames, c.expected(k)) for c in clients for k, out in c.kept)
+        judged = reference.add_judged([r["judged"] for r in results])
     failed = sum(1 for r in calls if not r["ok"])
     correct, checks = reference.verdict(judged, limits, failed)
     metrics = spec.read_metrics(spec.cell_metrics(bench, workload, trace),
@@ -350,9 +369,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if run["trace"] is not None:
         result["breakdown"] = breakdown(run)
     result["checks"] = checks
-    errors = sorted({e for c in clients for e in c.errors})
+    errors = sorted({e for r in results for e in r["errors"]})
     return {"result": result, "run": run, "judged": judged,
-            "errors": errors, "clients": clients}
+            "errors": errors, "cuda_at_start": cuda_at_start,
+            "workers": [{"pid": r["pid"], "cpus": r["cpus"]}
+                        for r in ready]}
 
 
 def main(argv=None) -> int:

@@ -5,16 +5,17 @@ them, and a traced run with the program's recorder on.
     python3 -m bench_port.spans --workload <cell> --seed <n> --seconds <s>
 
 runs the cell once as ``python3 -m bench_port.run ... --trace 1`` does,
-with ``go_dicom_codec_torch.utils.profiling``'s recorder installed just
-before the window and drained once the clients have stopped, and prints
-one JSON line: the harness's result, the readings below, the idle gaps
-named by span, the checks of the spans against the harness's own call
-times, the counters, and what a span costs. ``bench_port.run`` does not
-install the recorder, so its result lines hold none of these.
+with ``go_dicom_codec_torch.utils.profiling``'s recorder installed in each
+worker just before the window and drained once its client has stopped,
+and prints one JSON line: the harness's result, the readings below, the
+idle gaps named by span, the checks of the spans against the harness's
+own call times, the counters, and what a span costs. ``bench_port.run``
+does not install the recorder, so its result lines hold none of these.
 
-A run here is the harness's ``run`` with ``spans`` (the recorder's
+A run here is the harness's ``run`` with ``spans`` (the recorders'
 drained records: ``name``, ``tid``, ``id``, ``parent``, ``call``, ``t0``,
-``t1``, ``cpu0``, ``cpu1``, ``attrs``) and ``counters``. Every reading
+``t1``, ``cpu0``, ``cpu1``, ``attrs``, and the ``worker`` that recorded
+it, whose index is part of each id) and ``counters``. Every reading
 clips the spans to the traced stretch and divides by the frames done
 inside it (``arith.frames_within``), as ``copy_us_per_frame`` does. A
 span belongs to ``op`` when the outermost span of its call is
@@ -246,35 +247,15 @@ def span_cost_ns(pairs: int = 200_000) -> dict:
 
 def traced_run(workload: str, seed: int, seconds: float) -> dict:
     """``run.run_cell`` with ``--trace 1`` and the program's recorder on
-    from the end of set-up until the clients have stopped, so that calls
-    across either end of the stretch are whole; its spans and counters
-    land in ``run["spans"]`` and ``run["counters"]``."""
+    in each worker from the end of its set-up until its client has
+    stopped, so that calls across either end of the stretch are whole;
+    the spans of every worker (ids made (worker, id)) and their counters,
+    summed, land in ``run["spans"]`` and ``run["counters"]``."""
     from . import run as harness
-    from . import trace
 
-    base = trace.Tracer
-    state: dict = {}
-
-    class Recording(base):
-        def warm(self) -> None:
-            super().warm()
-            # the program loads only once the harness has set its host
-            # threads
-            from go_dicom_codec_torch.utils import profiling
-            state["profiling"] = profiling
-            state["recorder"] = profiling.enable_global_timer()
-
-    # run_cell takes the tracer class from this module when it is called
-    trace.Tracer = Recording
-    try:
-        out = harness.run_cell(workload, seed, seconds, True)
-    finally:
-        trace.Tracer = base
-        if "profiling" in state:
-            state["profiling"].GLOBAL_TIMER = None
-    if "recorder" not in state:
+    out = harness.run_cell(workload, seed, seconds, True, spans=True)
+    if out["run"]["trace"] is None:
         raise SystemExit("no result: the run made no traced stretch")
-    out["run"].update(state["recorder"].drain())
     return out
 
 

@@ -40,7 +40,27 @@ def test_intervals_union_busy_and_gaps():
     assert arith.union([(s, e) for _, s, e in ev]) == [(0.0, 1.5), (3.0, 4.0)]
     assert arith.busy_seconds(ev) == pytest.approx(2.5)
     assert arith.gaps(ev, -1.0, 5.0) == [(-1.0, 0.0), (1.5, 3.0), (4.0, 5.0)]
-    assert arith.seconds_by_name(ev) == {"k": 2.0, "c": 1.0}
+    assert arith.split_seconds([ev]) == {"k": 2.0, "c": 1.0}
+
+
+def test_split_seconds_gives_each_instant_to_the_latest_start():
+    """Two contexts whose kernels the card runs in turns: a short kernel
+    that started inside another context's long one keeps its span, the
+    long one loses it, and the kernels' seconds add up to the busy time;
+    a copy runs on a copy engine beside another context's kernel; a
+    context's own overlapping streams each count in full."""
+    a = [("t1", 0.0, 4.0)]
+    b = [("stage", 1.0, 1.5), ("Memcpy DtoH", 3.0, 3.5)]
+    got = arith.split_seconds([a, b])
+    assert got == pytest.approx({"t1": 3.5, "stage": 0.5,
+                                 "Memcpy DtoH": 0.5})
+    assert got["t1"] + got["stage"] == pytest.approx(arith.busy_seconds(a))
+    streams = [("k", 0.0, 2.0), ("k2", 1.0, 2.0)]
+    assert arith.split_seconds([streams]) == pytest.approx(
+        {"k": 2.0, "k2": 1.0})
+    # [1.2, 2]: the second context's "k" started last and takes it
+    assert arith.split_seconds([streams, [("k", 1.2, 2.0)]]) == \
+        pytest.approx({"k": 1.0 + 0.2 + 0.8, "k2": 0.2})
 
 
 def test_roofline_bytes_from_shapes():
@@ -70,10 +90,12 @@ def synthetic_run(trace=True):
                                 "bits_allocated": 16, "bits_stored": 12}},
            "trace": None}
     if trace:
+        events = [("Memcpy HtoD", 1.0, 1.001),
+                  ("inv_stage_kernel", 1.001, 1.002),
+                  ("Memcpy DtoH", 2.0, 2.001)]
         run["trace"] = {"t0": 1.0, "t1": 3.0, "cpu": (1.0, 3.0),
-                        "events": [("Memcpy HtoD", 1.0, 1.001),
-                                   ("inv_stage_kernel", 1.001, 1.002),
-                                   ("Memcpy DtoH", 2.0, 2.001)]}
+                        "events": events,
+                        "device_s": arith.split_seconds([events])}
     return run
 
 
@@ -84,7 +106,8 @@ def test_readers_on_a_synthetic_trace():
     assert readers.host_cpu_ms_per_frame(run, "decode") == pytest.approx(125)
     assert readers.copy_us_per_frame(run, "decode") == pytest.approx(
         2000 / 16)
-    assert readers.stage_roofline(run, "decode") == pytest.approx(
+    assert readers.stage_roofline(run, "decode",
+                                  "inv_stage_kernel") == pytest.approx(
         100 * 16 * 512 * 512 * 4 / 3.35e12 / 1e-3)
     assert readers.device_idle_share(run, "decode") == pytest.approx(
         100 * (1 - 0.003 / 2.0))
@@ -94,9 +117,11 @@ def test_readers_on_a_synthetic_trace():
 def test_readers_find_nothing_without_a_trace():
     run = synthetic_run(trace=False)
     for fn in (readers.host_cpu_ms_per_frame, readers.copy_us_per_frame,
-               readers.stage_roofline, readers.device_idle_share):
+               readers.device_idle_share):
         assert fn(run, "decode") is None
-    assert readers.stage_roofline(synthetic_run(), "encode") is None
+    assert readers.stage_roofline(run, "decode", "inv_stage_kernel") is None
+    assert readers.stage_roofline(synthetic_run(), "encode",
+                                  "fwd_stage_kernel") is None
 
 
 def test_trimmed_spread_leaves_out_the_farthest_value():

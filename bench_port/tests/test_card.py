@@ -42,7 +42,7 @@ def test_a_traced_run_on_the_card_is_correct_and_complete():
     bench = spec.load_benchmark()
     want = {m["name"] for m in spec.cell_metrics(bench, CELL, trace=True)}
     assert want <= set(res["metrics"])
-    for name in ("decode_stage_roofline", "device_idle_share.decode"):
+    for name in ("j2k_inv_stage_roofline", "device_idle_share.decode"):
         assert 0 < res["metrics"][name]["value"] <= 100
 
 

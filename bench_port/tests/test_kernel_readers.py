@@ -23,7 +23,9 @@ def run_with(events, trace=True):
                                  "samples_per_pixel": 1,
                                  "bits_allocated": 16, "bits_stored": 12}},
             "trace": {"t0": 1.0, "t1": 3.0, "cpu": (1.0, 3.0),
-                      "events": list(events)} if trace else None}
+                      "events": list(events),
+                      "device_s": arith.split_seconds([events])}
+            if trace else None}
 
 
 EVENTS = [("Memcpy HtoD (Pinned -> Device)", 1.0, 1.001),
@@ -32,6 +34,10 @@ EVENTS = [("Memcpy HtoD (Pinned -> Device)", 1.0, 1.001),
           (STAGE, 1.0061, 1.0071),
           ("void (anonymous namespace)::inv97_stage_kernel<float>", 2.0, 2.5),
           ("Memcpy DtoH (Device -> Pinned)", 2.5, 2.501)]
+
+
+STAGE_EVENT = EVENTS[3]
+FWD = "void (anonymous namespace)::fwd_stage_kernel<unsigned short, fal"
 
 
 def read(metric, run):
@@ -43,9 +49,9 @@ def test_stage_roofline_reads_the_stage_kernel_alone():
     per = arith.stage_bytes_per_frame(512, 512, 1, 16, 12)
     assert read("j2k_inv_stage_roofline", run) == pytest.approx(
         100 * 16 * per / arith.HBM_BYTES_PER_S / 1e-3)
-    # the share over every kernel is far lower: the T1 kernel and the 9/7
-    assert read("decode_stage_roofline", run) < 0.01 * read(
-        "j2k_inv_stage_roofline", run)
+    # the T1 kernel, the 9/7 stage and the copies leave it unmoved
+    assert read("j2k_inv_stage_roofline", run_with([STAGE_EVENT])) == \
+        read("j2k_inv_stage_roofline", run)
 
 
 def test_t1_kernel_time_a_frame():
@@ -67,3 +73,20 @@ def test_stage_roofline_reads_a_program_without_the_t1_kernel():
     run = run_with([e for e in EVENTS if "warp" not in e[0]])
     assert read("j2k_inv_stage_roofline", run) > 0
     assert read("j2k_t1_decode_us_per_frame", run) is None
+
+
+def test_encode_stage_roofline_reads_the_forward_stage_kernel_alone():
+    """A T1-like kernel among the encode's events (T1 encode on the card)
+    and the copies leave the forward stage's share unmoved."""
+    stage = [(FWD, 1.5, 1.501)]
+    alone = run_with(stage)
+    for c in alone["calls"]:
+        c["op"] = "encode"
+    beside = run_with(stage + [(T1.replace("t1_warp", "t1_encode_warp"),
+                                1.6, 1.9)] + EVENTS[:2])
+    beside["calls"] = alone["calls"]
+    per = arith.stage_bytes_per_frame(512, 512, 1, 16, 12)
+    want = 100 * 16 * per / arith.HBM_BYTES_PER_S / 1e-3
+    assert read("encode_stage_roofline", alone) == pytest.approx(want)
+    assert read("encode_stage_roofline", beside) == pytest.approx(want)
+    assert read("encode_stage_roofline", run_with(EVENTS)) is None

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import pytest
 
+from bench_port import arith
 from bench_port import spans as S
 
 _ids = iter(range(1, 10_000))
@@ -41,7 +42,8 @@ def run_of(spans, lo=0.0, hi=10.0, calls=None, events=()):
         {"client": 0, "op": "decode", "t0": 0.0, "t1": 10.0, "frames": 4,
          "ok": True}]
     return {"calls": calls, "spans": spans,
-            "trace": {"t0": lo, "t1": hi, "events": list(events)}}
+            "trace": {"t0": lo, "t1": hi, "events": list(events),
+                      "device_s": arith.split_seconds([events])}}
 
 
 def test_the_parts_add_up_to_the_call():

@@ -1,9 +1,10 @@
 """The traced sub-window: torch.profiler over a stretch of the measured
 window, read into device events on the host's monotonic clock.
 
-The profiler runs in the process of the clients and records the card's
-operations of every thread. Two marks of the thread that starts it tie
-the profiler's clock to ``time.perf_counter``.
+Each worker runs a profiler of its own, which records the card's
+operations of its process. Two marks of the thread that starts it tie the
+profiler's clock to ``time.perf_counter``, the clock every process on the
+machine shares.
 """
 
 from __future__ import annotations
