@@ -53,8 +53,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    ``decode_frames_pipelined`` on the card, one ``j2k_t1_decode`` and one
    ``j2k_inv_stage`` launch a chunk of 8 and no other kernel, equal to
    ``J2KDecoder.decode`` frame for frame, and each chunk's T1 plan decoded
-   by the T1 kernel equal to its plain version; every kernel must have
-   launched in that run;
+   by the T1 kernel equal to its plain version; the same 32 frames'
+   worth of .201 phantom frames (``ht_main_path``) through the pipeline,
+   one ``j2k_ht_decode`` and one ``j2k_inv_stage`` launch a chunk, each
+   chunk's HT plan on the card equal to its plain version; every kernel
+   must have launched in that run;
 5. drives the codec path on the card through ``make_registry(cuda:0)``,
    once the native T1/T2 library (g++, built beside the nvcc build) is
    loaded: 32 gray 512×512 12-bit frames and 8 RGB 512×512 8-bit frames
@@ -86,8 +89,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 6. drives the other codec families through the same registry: exactly
    the fourteen UIDs; HTJ2K .201/.202 on 32 gray 512×512 12-bit frames,
    codestreams byte-identical to ``make_registry(cuda:0, engine="host")``
-   with one fused forward stage launch a frame and one fused inverse
-   stage launch a decode chunk, .203 within ±1; the 14 OpenJPH golden
+   with one fused forward stage launch a frame and one HT cleanup launch
+   and one fused inverse stage launch a decode chunk, .203 within ±1; the 14 OpenJPH golden
    codestreams, one inverse stage launch each; RLE .5 on 32 gray 16-bit
    and 8 RGB frames, the card's byte planes equal to numpy's (their device
    time beside an x+1 of the same bytes on ``PLANES`` lines); .57, .70,
@@ -184,7 +187,7 @@ from go_dicom_codec_torch import pipeline as P
 from go_dicom_codec_torch.codecs import j2k_adapters
 from go_dicom_codec_torch.codecs.jpeg2000 import (J2KDecoder,
                                                   J2KEncodeParams, J2KEncoder,
-                                                  t1_blocks)
+                                                  ht_blocks, t1_blocks)
 from go_dicom_codec_torch.codecs.jpeg_common import CHROMA_QUANT
 from go_dicom_codec_torch.ops.convert import round_to_int32_sat
 from go_dicom_codec_torch.ops.dct8x8 import (LUMA_QUANT, _basis,
@@ -208,6 +211,7 @@ from go_dicom_codec_torch.ops.j2k97_inv_stage import (inv97_stage,
                                                      inv97_stage_plain)
 from go_dicom_codec_torch.ops.j2k_fwd_stage import fwd_stage, fwd_stage_plain
 from go_dicom_codec_torch.ops.j2k_inv_stage import inv_stage, inv_stage_plain
+from go_dicom_codec_torch.ops import j2k_ht_decode
 from go_dicom_codec_torch.ops.j2k_t1_decode import (chunk_plan, t1_decode,
                                                     t1_decode_plain)
 from go_dicom_codec_torch.ops.jpeg_islow import (fdct_islow, idct_islow,
@@ -245,6 +249,10 @@ SOURCES = {
     "j2k_t1_decode": ("cuda", "go_dicom_codec_torch/csrc/j2k_t1_decode.cu",
                       "none: the reference decodes T1 on the host "
                       "(native/ebcot_native.cpp:2196, t1_decode_impl)"),
+    "j2k_ht_decode": ("cuda", "go_dicom_codec_torch/csrc/j2k_ht_decode.cu",
+                      "none: the reference decodes HT code-blocks on the "
+                      "host (native/ebcot_native.cpp:4741, "
+                      "ht_cleanup_decode_impl)"),
 }
 T1_CHUNK = 8  # frames a chunk of the decode pipeline
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
@@ -762,12 +770,11 @@ def only(lc: dict, name: str, n: int) -> bool:
     return lc[name] == n and not any(v for k, v in lc.items() if k != name)
 
 
-def decode_launches(lc: dict, n: int) -> bool:
-    """True when the launches ``lc`` of a pipelined .90 decode are ``n``
-    of the T1 kernel and ``n`` of the inverse stage, one each a chunk,
-    and none of any other."""
-    return (lc["j2k_t1_decode"] == n
-            and only({**lc, "j2k_t1_decode": 0}, "j2k_inv_stage", n))
+def decode_launches(lc: dict, n: int, t1: str = "j2k_t1_decode") -> bool:
+    """True when the launches ``lc`` of a pipelined decode are ``n`` of the
+    code-block kernel ``t1`` (the HT one for .201/.202) and ``n`` of the
+    inverse stage, one each a chunk, and none of any other."""
+    return lc[t1] == n and only({**lc, t1: 0}, "j2k_inv_stage", n)
 
 
 def t1_streams(rng, n: int) -> list:
@@ -813,6 +820,61 @@ def t1_main_path(rng, dev) -> int:
         err = max(err, max_abs_diff(got.cpu(), want))
     check(err == 0, f"T1 kernel differs from its plain version by {err}")
     print(f"T1 main path [{B}, {H}, {W}] .90: {chunks} j2k_t1_decode and "
+          f"{chunks} j2k_inv_stage launches, decode == J2KDecoder; each "
+          f"chunk's plan on the card == plain")
+    return err
+
+
+def ht_streams(rng, n: int) -> tuple:
+    """n gray 512² 12-bit phantom frames and their .201 codestreams with the
+    benchmark's coding parameters (5 levels, 64² code-blocks, LRCP, one
+    layer), coded on the host."""
+    frames = phantom(rng, n, 12)
+    enc = J2KEncoder(J2KEncodeParams(num_levels=LEVELS, htj2k=True,
+                                     progression=0),
+                     device=torch.device("cpu"), engine="host")
+    return frames, [enc.encode(f, W, H, 1, 12) for f in frames]
+
+
+def ht_plans(streams: list) -> list:
+    """The HT plans of ``streams`` by chunk of ``T1_CHUNK``, as the decode
+    pipeline makes them."""
+    plans = []
+    for k in range(0, len(streams), T1_CHUNK):
+        parsed = [ht_blocks(s) for s in streams[k:k + T1_CHUNK]]
+        plans.append(j2k_ht_decode.chunk_plan([p[4] for p in parsed],
+                                              parsed[0][0]))
+    return plans
+
+
+def ht_main_path(rng, dev) -> int:
+    """The HT cleanup kernel on the main path: a pipelined .201 decode of
+    ``B`` phantom frames, one HT launch and one inverse stage launch a
+    chunk, equal to J2KDecoder; each chunk's plan on the card equal to the
+    plain version. Returns the largest |difference| of its coefficients."""
+    frames, streams = ht_streams(rng, B)
+    got, lc = launched(lambda: P.decode_frames_pipelined(
+        streams, engine="device", device=dev))
+    chunks = -(-B // T1_CHUNK)
+    check(decode_launches(lc, chunks, "j2k_ht_decode"), f"HT main path: "
+          f"the decode launched {lc}, not one j2k_ht_decode and one "
+          f"j2k_inv_stage a chunk ({chunks})")
+    for g, s, f in zip(got, streams, frames):
+        check(np.array_equal(g, J2KDecoder(device=dev).decode(s)[0])
+              and np.array_equal(g[..., 0], f),
+              "HT main path: a pipelined decode differs from J2KDecoder's")
+    err = 0
+    for plan in ht_plans(streams):
+        want, want_status = j2k_ht_decode.ht_decode_plain(
+            torch.from_numpy(plan.buf), plan.launch)
+        got, status = j2k_ht_decode.ht_decode(
+            torch.from_numpy(plan.buf).to(dev), plan.launch)
+        check(got.dtype == want.dtype and status.item() == 0 ==
+              want_status.item(), f"HT kernel wrote {got.dtype}, status "
+              f"{status.item()}; its plain version {want.dtype}")
+        err = max(err, max_abs_diff(got.cpu(), want))
+    check(err == 0, f"HT kernel differs from its plain version by {err}")
+    print(f"HT main path [{B}, {H}, {W}] .201: {chunks} j2k_ht_decode and "
           f"{chunks} j2k_inv_stage launches, decode == J2KDecoder; each "
           f"chunk's plan on the card == plain")
     return err
@@ -1159,7 +1221,44 @@ def time_kernels(dev, rng, qt) -> dict:
                       ("per_frame", "per_frame")):
         t["jpeg_idct_islow"][key] = t.pop(name)
     t["j2k_t1_decode"] = time_t1(dev, rng)
+    t["j2k_ht_decode"] = time_ht(dev, rng)
     return t
+
+
+def time_ht(dev, rng) -> dict:
+    """The HT cleanup kernel (``timing``) on the plan of the decode
+    pipeline's chunk of ``T1_CHUNK`` .201 phantom frames (``ht_streams``)
+    and, beside it, of ``B`` frames (``b32``), with the plain version's ms
+    on the host (``plain_ms``: the native batched decode, its threads, and
+    the paste). Bound: the plan's bytes read and the coefficients written
+    once; the chain of MEL and VLC decisions, not bytes, sets its time."""
+    _, streams = ht_streams(rng, B)
+    parsed = [ht_blocks(s) for s in streams]
+    out = {}
+    for n in (T1_CHUNK, B):
+        plan = j2k_ht_decode.chunk_plan([p[4] for p in parsed[:n]],
+                                        parsed[0][0])
+        buf = torch.from_numpy(plan.buf).to(dev)
+        cpu = torch.from_numpy(plan.buf)
+        plain = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            j2k_ht_decode.ht_decode_plain(cpu, plan.launch)
+            plain.append((time.perf_counter() - t0) * 1e3)
+        coef = (2 if plan.launch.narrow else 4) * int(np.prod(
+            plan.launch.shape))
+        row = {**timing(lambda: j2k_ht_decode.ht_decode(buf, plan.launch)),
+               "plain_ms": statistics.median(plain),
+               "blocks": plan.launch.blocks,
+               **bound(plan.buf.size + coef, 0)}
+        if n == T1_CHUNK:
+            out.update(row)
+        else:
+            out["b32"] = row
+    print(f"j2k_ht_decode: a chunk of {T1_CHUNK} frames ({out['blocks']} "
+          f"blocks) event {out['ms']:.4f} ms, plain {out['plain_ms']:.2f} "
+          f"ms; {B} frames event {out['b32']['ms']:.4f} ms")
+    return out
 
 
 def time_t1(dev, rng) -> dict:
@@ -1710,8 +1809,8 @@ def host_round_trip(host_registry, uid, frames, bits, rgb):
 def htj2k_phase(rng, dev, registry, host_registry) -> dict:
     """.201 and .202: 32 gray 512² 12-bit frames through the card registry
     and the host engine, codestreams byte-identical and decodes bit-exact;
-    one forward stage launch a frame on encode, one inverse stage launch a
-    decode chunk, no lifting pass, no DCT. .203: 8 frames at quality 85,
+    one forward stage launch a frame on encode, one HT cleanup launch and
+    one inverse stage launch a decode chunk, no lifting pass, no DCT. .203: 8 frames at quality 85,
     decodes within ±1 of the host engine's. Returns the .201 calls for
     ``rates`` and the launches."""
     frames = phantom(rng, B, 12)
@@ -1733,15 +1832,17 @@ def htj2k_phase(rng, dev, registry, host_registry) -> dict:
         check(only(enc, "j2k_fwd_stage", B),
               f"{uid}: the encode did not run one j2k_fwd_stage launch a "
               f"frame and no other kernel {enc}")
-        check(only(dec, "j2k_inv_stage", dchunks),
-              f"{uid}: the decode did not run one j2k_inv_stage launch a "
-              f"chunk ({dchunks}) and no other kernel {dec}")
+        check(decode_launches(dec, dchunks, "j2k_ht_decode"),
+              f"{uid}: the decode did not run one j2k_ht_decode and one "
+              f"j2k_inv_stage launch a chunk ({dchunks}) and no other "
+              f"kernel {dec}")
         launches[uid] = lc
         print(f"HTJ2K {uid} [{B}, {H}, {W}] 12-bit: codestreams == host "
               f"engine, decodes bit-exact; j2k_fwd_stage launches per "
-              f"encode {enc['j2k_fwd_stage']} (one a frame), j2k_inv_stage "
-              f"per decode {dec['j2k_inv_stage']} ({dchunks} chunks of 8), "
-              f"no other kernel; "
+              f"encode {enc['j2k_fwd_stage']} (one a frame), j2k_ht_decode "
+              f"and j2k_inv_stage per decode {dec['j2k_ht_decode']} and "
+              f"{dec['j2k_inv_stage']} ({dchunks} chunks of 8), no other "
+              f"kernel; "
               f"{sum(len(s) for s in streams) / B:.0f} bytes/frame")
         out_calls = out_calls or calls
     frames = phantom(rng, RGB_FRAMES, 12)
@@ -2615,6 +2716,7 @@ def main() -> int:
     print(f"native host library ready after "
           f"{time.perf_counter() - t_native:.2f} s")
     errs["j2k_t1_decode"] = t1_main_path(rng, dev)
+    errs["j2k_ht_decode"] = ht_main_path(rng, dev)
     launches = dict(_kernels.launch_counts)
     print(f"main path {time.perf_counter() - t0:.2f} s, launches {launches}")
     check(all(n > 0 for n in launches.values()), "a kernel never launched")

@@ -40,7 +40,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 launch_counts = {"fdct8x8_quant": 0, "j2k_fwd_stage": 0,
                  "j2k_inv_stage": 0, "j2k97_fwd_stage": 0,
                  "j2k97_inv_stage": 0, "jpeg_fdct_islow": 0,
-                 "jpeg_idct_islow": 0, "j2k_t1_decode": 0}
+                 "jpeg_idct_islow": 0, "j2k_t1_decode": 0,
+                 "j2k_ht_decode": 0}
 
 _lib = None
 
@@ -130,11 +131,13 @@ def _load():
     lib.gdct_jpeg_idct_islow.argtypes = [p, i, p, i, p, p, ll, i, i, i, i,
                                          i, p]
     lib.gdct_j2k_t1_decode.argtypes = [p, i, ll, ll, p, i, ll, i, i, i, p, p]
+    lib.gdct_j2k_ht_decode.argtypes = [p, i, ll, p, i, ll, i, i, p, i, p]
     for fn in (lib.gdct_fdct8x8_quant, lib.gdct_j2k_fwd_stage,
                lib.gdct_j2k_inv_stage, lib.gdct_j2k97_fwd_stage,
                lib.gdct_j2k97_inv_stage, lib.gdct_j2k97_fwd_warps,
                lib.gdct_j2k97_inv_warps, lib.gdct_jpeg_fdct_islow,
-               lib.gdct_jpeg_idct_islow, lib.gdct_j2k_t1_decode):
+               lib.gdct_jpeg_idct_islow, lib.gdct_j2k_t1_decode,
+               lib.gdct_j2k_ht_decode):
         fn.restype = ctypes.c_int
     lib.gdct_error_string.argtypes = [ctypes.c_int]
     lib.gdct_error_string.restype = ctypes.c_char_p
@@ -745,5 +748,48 @@ def j2k_t1_decode(plan: torch.Tensor, out: torch.Tensor, launch,
             out.data_ptr(), int(launch.narrow), out.numel(), th, tw,
             launch.max_words, None if times is None else times.data_ptr(),
             _stream(plan))
+    launch_counts[name] += 1
+    _check(lib, err, name)
+
+
+# The HT kernel's plan records: int32 fields a code-block
+# (ops/j2k_ht_decode.py). The most 32-bit words of shared memory a
+# code-block takes (ops/j2k_ht_decode.py:block_words, over every size
+# T.800 allows and a Scup of 4079, 8,636), under the 48 KiB a launch
+# gets without opting in.
+HT_RECORD = 10
+HT_MAX_WORDS = 11 * 1024
+
+
+def j2k_ht_decode(plan: torch.Tensor, out: torch.Tensor,
+                  status: torch.Tensor, launch) -> None:
+    """Launch the HT cleanup decode once: the ``launch.blocks`` code-blocks
+    of the plan bytes ``plan`` (uint8, laid out by
+    ``ops/j2k_ht_decode.make_plan``, which checked every record) → their
+    coefficients in ``out`` (int16 when ``launch.narrow``, else int32,
+    ``launch.shape``), zeroed first where no block lands; ``status``
+    (int32 [1]) zeroed, then set where a block's stream breaks T.814's
+    bound on U_q."""
+    name = "j2k_ht_decode"
+    _require(plan, torch.uint8, f"{name} plan")
+    _require(out, torch.int16 if launch.narrow else torch.int32,
+             f"{name} out")
+    _require(status, torch.int32, f"{name} status")
+    if (out.device != plan.device or status.device != plan.device
+            or tuple(out.shape) != launch.shape or status.numel() != 1):
+        raise KernelLaunchError(f"{name}: out needs {launch.shape} and "
+                                f"status one int32, on {plan.device}")
+    if (launch.blocks < 0 or launch.data_at != 4 * HT_RECORD * launch.blocks
+            or launch.data_at > plan.numel()
+            or not 0 <= launch.max_words <= HT_MAX_WORDS):
+        raise KernelLaunchError(f"{name}: a plan of {plan.numel()} bytes "
+                                f"does not hold {launch}")
+    _, th, tw = launch.shape
+    lib = _load()
+    with torch.cuda.device(plan.device):
+        err = lib.gdct_j2k_ht_decode(
+            plan.data_ptr(), launch.blocks, launch.data_at, out.data_ptr(),
+            int(launch.narrow), out.numel(), th, tw, status.data_ptr(),
+            launch.max_words, _stream(plan))
     launch_counts[name] += 1
     _check(lib, err, name)

@@ -2300,19 +2300,16 @@ def decode_to_packed(data: bytes, return_qcd: bool = False,
     return packed, siz, cod
 
 
-def t1_blocks(data: bytes):
-    """Parse and T2 of a codestream whose T1 the card may decode
-    (ops/j2k_t1_decode.py), stopping before T1: one tile, the reversible
-    5/3, one COD for every component, unsubsampled components of at most
-    31 bits, MQ code-blocks (no HT style) of the sizes T.800 allows, no
-    ROI shift (so no General-Scaling masks either) and no Part-2 MCT,
-    every code-block's numbps at most 30. Returns None for any other stream, whose host stage
-    is ``decode_to_packed``'s; else ((C, th, tw), siz, cod, qcd, blocks),
-    the first four as ``decode_to_packed`` gives them, blocks the MQ
-    code-blocks with passes in ``J2KDecoder._decode_tile``'s walk:
-    (bytes, w, h, orient, passes, numbps, seg_ends, style, component, row,
-    col), row and col where the block lands in its component's packed
-    array."""
+def card_blocks(data: bytes):
+    """Parse and T2 of a codestream whose code-blocks the card may decode,
+    stopping before T1: one tile, the reversible 5/3, one COD for every
+    component, unsubsampled components of at most 31 bits, code-blocks of
+    the sizes T.800 allows, no ROI shift (so no General-Scaling masks
+    either) and no Part-2 MCT. Returns None for any other stream, whose
+    host stage is ``decode_to_packed``'s; else (kind, got): kind "t1" with
+    ``t1_blocks``' result for MQ code-blocks, "ht" with ``ht_blocks``' for
+    HT ones (code-block style 0x40). Either is None where a block stays on
+    the host."""
     cs = _parse(data)
     siz = cs.siz
     ncomp = len(siz.components)
@@ -2327,35 +2324,77 @@ def t1_blocks(data: bytes):
     cods = [cs.cod_for(c, tile) for c in range(ncomp)]
     cod = cods[0]
     if (any(cc != cod for cc in cods[1:]) or cod.transform != 1
-            or cod.cb_style & 0x40 or cod.cb_width > 1024
-            or cod.cb_height > 1024 or cod.cb_width * cod.cb_height > 4096):
+            or cod.cb_width > 1024 or cod.cb_height > 1024
+            or cod.cb_width * cod.cb_height > 4096):
         return None
     qcds = [cs.qcd_for(c, tile) for c in range(ncomp)]
-    from ..ops.j2k_t1_decode import MAX_NUMBPS
     comp_res, comp_states, _ = J2KDecoder(device=None)._tile_packets(
         tile.data, cods, qcds, ncomp, {}, [rect] * ncomp, cs.poc_for(tile),
         tile.ppt, None, tile.plt)
-    style = cod.cb_style
-    blocks = []
-    for c in range(ncomp):
-        for res in comp_res[c]:
-            for prec in res.precincts:
-                plist = comp_states[c][(res.r, prec.index)]
-                for pb, ps in zip(prec.bands, plist):
-                    bg = pb.band
-                    for g, st in zip(pb.blocks, ps.blocks):
-                        if (st.num_passes == 0 or st.numbps <= 0
-                                or g.x1 <= g.x0 or g.y1 <= g.y0):
-                            continue
-                        if st.numbps > MAX_NUMBPS:
-                            return None
-                        blocks.append((
-                            bytes(st.seg_data), g.x1 - g.x0, g.y1 - g.y0,
-                            bg.band, st.num_passes, st.numbps, st.seg_ends,
-                            style, c, bg.row_off + g.y0 - bg.y0,
-                            bg.col_off + g.x0 - bg.x0))
     tx0, ty0, tx1, ty1 = rect
-    return (ncomp, ty1 - ty0, tx1 - tx0), siz, cod, qcds[0], blocks
+    head = ((ncomp, ty1 - ty0, tx1 - tx0), siz, cod, qcds[0])
+    walk = (
+        (c, pb.band, ps, g, st)
+        for c in range(ncomp)
+        for res in comp_res[c]
+        for prec in res.precincts
+        for pb, ps in zip(prec.bands,
+                          comp_states[c][(res.r, prec.index)])
+        for g, st in zip(pb.blocks, ps.blocks)
+        if st.num_passes and st.numbps > 0 and g.x1 > g.x0 and g.y1 > g.y0)
+    if cod.cb_style & 0x40:
+        return "ht", _ht_list(head, walk)
+    return "t1", _t1_list(head, walk, cod.cb_style)
+
+
+def _t1_list(head, walk, style):
+    from ..ops.j2k_t1_decode import MAX_NUMBPS
+    blocks = []
+    for c, bg, _, g, st in walk:
+        if st.numbps > MAX_NUMBPS:
+            return None
+        blocks.append((bytes(st.seg_data), g.x1 - g.x0, g.y1 - g.y0,
+                       bg.band, st.num_passes, st.numbps, st.seg_ends,
+                       style, c, bg.row_off + g.y0 - bg.y0,
+                       bg.col_off + g.x0 - bg.x0))
+    return head + (blocks,)
+
+
+def _ht_list(head, walk):
+    from ..ops.j2k_ht_decode import MAX_KMAX
+    blocks = []
+    for c, bg, ps, g, st in walk:
+        if st.num_passes != 1 or ps.mb > MAX_KMAX:
+            return None
+        blocks.append((bytes(st.seg_data), g.x1 - g.x0, g.y1 - g.y0,
+                       ps.mb, ps.mb - st.numbps, c,
+                       bg.row_off + g.y0 - bg.y0,
+                       bg.col_off + g.x0 - bg.x0))
+    return head + (blocks,)
+
+
+def t1_blocks(data: bytes):
+    """``card_blocks`` of a stream of MQ code-blocks whose numbps are at
+    most 30 (ops/j2k_t1_decode.py), else None: ((C, th, tw), siz, cod,
+    qcd, blocks), the first four as ``decode_to_packed`` gives them,
+    blocks the code-blocks with passes in ``J2KDecoder._decode_tile``'s
+    walk: (bytes, w, h, orient, passes, numbps, seg_ends, style,
+    component, row, col), row and col where the block lands in its
+    component's packed array."""
+    got = card_blocks(data)
+    return got[1] if got is not None and got[0] == "t1" else None
+
+
+def ht_blocks(data: bytes):
+    """``card_blocks`` of a stream of HT code-blocks that are all cleanup
+    passes alone (no SigProp or MagRef pass), each band's Mb at most 30
+    (ops/j2k_ht_decode.py), else None: ((C, th, tw), siz, cod, qcd,
+    blocks), blocks as ``t1_blocks`` walks them: (cleanup segment, w, h,
+    kmax, missing, component, row, col), kmax the band's Mb and missing
+    its count of missing MSBs, Mb − numbps, as the host's
+    ``ht_cleanup_decode_blocks`` takes them."""
+    got = card_blocks(data)
+    return got[1] if got is not None and got[0] == "ht" else None
 
 
 def decode_to_packed_tiles(data: bytes, reduce: int = 0):

@@ -18,7 +18,8 @@ Port of ``go_dicom_codec_tpu/pipeline.py``:
   ``decode_frames_pipelined``: the device transforms chunk k+1 while the
   host entropy-codes chunk k (``_Lane`` holds the CUDA side of that); on
   a card a reversible decode chunk's T1 runs on the device too, one
-  launch of the T1 kernel (ops/j2k_t1_decode.py) before its stage;
+  launch of the T1 kernel (ops/j2k_t1_decode.py) or, for HT code-blocks,
+  of the HT cleanup kernel (ops/j2k_ht_decode.py) before its stage;
 - the JPEG baseline/extended ``encode_frames_pipelined_jpeg`` on the same
   lane: one launch of the islow forward kernel (ops/jpeg_islow.py) a
   chunk while the host Huffman-codes the chunk before; and
@@ -47,7 +48,7 @@ from .ops.mct import (ict_inverse_np, inv_dc_level_shift, rct_forward_np,
 from .ops.j2k97_inv_stage import inv97_stage
 from .ops.j2k_fwd_stage import fwd_stage
 from .ops.j2k_inv_stage import inv_stage, narrow_pixels
-from .ops.j2k_t1_decode import chunk_plan, t1_decode
+from .ops import j2k_ht_decode, j2k_t1_decode
 from .utils.profiling import count, log_event, span
 
 INT16_MAX = 32767
@@ -160,9 +161,19 @@ def _j2k_t1_decode_stage(plan: torch.Tensor, launch, comps: int,
     coefficients, [frames, comps, th, tw] → ``_j2k_decode_device_stage``
     with the keywords of ``stage``. On a CUDA tensor one T1 launch and one
     stage launch: the coefficients never leave the card."""
-    packed = t1_decode(plan, launch)
+    packed = j2k_t1_decode.t1_decode(plan, launch)
     _, th, tw = launch.shape
     return _j2k_decode_device_stage(packed.view(-1, comps, th, tw), **stage)
+
+
+def _j2k_ht_decode_stage(plan: torch.Tensor, launch, comps: int, **stage):
+    """``_j2k_t1_decode_stage`` for a chunk's HT plan
+    (ops/j2k_ht_decode.py): one HT cleanup launch and one stage launch on
+    a CUDA tensor. Returns (samples, the decode's status)."""
+    packed, status = j2k_ht_decode.ht_decode(plan, launch)
+    _, th, tw = launch.shape
+    return (_j2k_decode_device_stage(packed.view(-1, comps, th, tw),
+                                     **stage), status)
 
 
 def _j2k_decode_device_stage_97(fbatch: torch.Tensor, levels: int, x0: int,
@@ -611,11 +622,13 @@ def decode_frames_pipelined(streams, chunk: int = 8,
     the batched inverse DWT + inverse color transform + DC unshift for
     chunk k — the decode-side mirror of encode_frames_pipelined (same
     ``engine`` choice). On a CUDA lane a reversible chunk at full
-    resolution whose frames ``codecs.jpeg2000.t1_blocks`` takes (MQ
-    code-blocks, no ROI shift) leaves only parse and T2 on the host: the
-    card decodes its T1 in one launch (ops/j2k_t1_decode.py) into the
-    stage's input. Requires homogeneous single-tile streams of equal
-    geometry (the shape the encode pipelines emit). Reversible output is
+    resolution whose frames ``codecs.jpeg2000.card_blocks`` takes (MQ
+    code-blocks, or HT ones of cleanup passes alone; no ROI shift) leaves
+    only parse and T2 on the host: the card decodes its code-blocks in one
+    launch (ops/j2k_t1_decode.py, ops/j2k_ht_decode.py) into the stage's
+    input; an HT stream error found there raises CorruptStreamError.
+    Requires homogeneous single-tile streams of equal geometry (the shape
+    the encode pipelines emit). Reversible output is
     bit-identical to J2KDecoder.decode per frame; irreversible streams
     (host per-band dequant + float 9/7 inverse) come back clipped to the
     declared dynamic range (what the final pixel pack does anyway) and
@@ -624,8 +637,9 @@ def decode_frames_pipelined(streams, chunk: int = 8,
     Returns a list of [H, W, C] int32 arrays. A call that returns logs a
     ``pipeline.decode`` event (utils.profiling) naming its engine.
     """
-    from .codecs.jpeg2000 import (J2KEncoder, decode_to_packed,
-                                  dequantize_packed, t1_blocks)
+    from .codecs.jpeg2000 import (J2KEncoder, card_blocks,
+                                  decode_to_packed, dequantize_packed)
+    from .errors import CorruptStreamError
 
     if not streams:
         return ([], None) if return_info else []
@@ -670,30 +684,50 @@ def decode_frames_pipelined(streams, chunk: int = 8,
             packs.append(packed)
         return np.stack(packs)
 
-    def t1_plan(group):
-        """Parse and T2 of the chunk's frames and the plan of their T1,
-        or None when a frame's T1 stays on the host (t1_blocks)."""
-        frames = []
+    def card_plan(group):
+        """Parse and T2 of the chunk's frames and the plan of their
+        code-blocks' decode on the card, MQ ("t1") or HT ("ht"), as
+        (kind, plan); or None when a frame's stay on the host
+        (card_blocks)."""
+        frames, kinds = [], set()
         for s in group:
             with span("j2k.frame"):
-                got = t1_blocks(s)
-            if got is None:
+                got = card_blocks(s)
+            if got is None or got[1] is None:
                 return None
-            frames.append(got)
+            kinds.add(got[0])
+            frames.append(got[1])
+        if len(kinds) != 1:
+            return None
         for shape, siz, cod, qcd, _ in frames:
             same_geometry(shape, siz, cod, qcd)
-        return chunk_plan([f[4] for f in frames], frames[0][0])
+        (kind,) = kinds
+        blocks, shape = [f[4] for f in frames], frames[0][0]
+        if kind == "ht":
+            with span("j2k.ht_plan"):
+                return kind, j2k_ht_decode.chunk_plan(blocks, shape)
+        return kind, j2k_t1_decode.chunk_plan(blocks, shape)
+
+    def read(pending):
+        """A chunk's samples, once an HT chunk's status says its streams
+        held."""
+        got = pending.result()
+        if len(got) > 1 and got[1].any():
+            raise CorruptStreamError("HT cleanup stream error: a quad's U_q "
+                                     "passes its bound")
+        return got[0]
 
     groups = [streams[i : i + chunk] for i in range(0, len(streams), chunk)]
     out = []
     lane = None if use_host else _Lane(device)
     # the card takes the T1 of reversible chunks at full resolution (the
-    # host engine, HTJ2K, lossy and reduced decodes keep theirs: t1_blocks)
+    # host engine, HT refinement passes, lossy and reduced decodes keep
+    # theirs: card_blocks)
     card_t1 = lane is not None and lane.cuda and reduce == 0
     prev = None  # chunk pending readback
     for group in groups:
         with span("pipeline.host_stage"):
-            plan = t1_plan(group) if card_t1 else None
+            plan = card_plan(group) if card_t1 else None
             if plan is None:
                 batch = host_stage(group)  # host T1 (+dequant) of THIS chunk
         (shape, levels, x0, y0, (bits, signed), mct, transform,
@@ -744,8 +778,10 @@ def decode_frames_pipelined(streams, chunk: int = 8,
         stage = dict(levels=levels, x0=x0, y0=y0, bits=bits, signed=signed,
                      mct=bool(mct), narrow=narrow)
         if plan is not None:
-            count("t1.device_blocks", plan.launch.blocks)
+            kind, plan = plan
+            count(f"{kind}.device_blocks", plan.launch.blocks)
             pending = lane.submit(partial(
+                _j2k_ht_decode_stage if kind == "ht" else
                 _j2k_t1_decode_stage, launch=plan.launch, comps=shape[0],
                 **stage), plan.buf)
         else:
@@ -756,10 +792,10 @@ def decode_frames_pipelined(streams, chunk: int = 8,
                 _j2k_decode_device_stage if transform == 1
                 else _j2k_decode_device_stage_97, **stage), batch)
         if prev is not None:
-            out.extend(prev.result()[0])  # previous chunk's device work
+            out.extend(read(prev))  # previous chunk's device work
         prev = pending
     if prev is not None:
-        out.extend(prev.result()[0])
+        out.extend(read(prev))
     frames = [np.moveaxis(np.asarray(f).astype(np.int32), 0, -1)
               for f in out]
     _log_call("pipeline.decode", use_host, len(frames), len(groups))

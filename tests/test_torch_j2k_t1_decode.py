@@ -28,7 +28,8 @@ from go_dicom_codec_torch import pipeline as P
 from go_dicom_codec_torch.codecs.j2k_roi import ROIRegion
 from go_dicom_codec_torch.codecs.jpeg2000 import (J2KDecoder,
                                                   J2KEncodeParams, J2KEncoder,
-                                                  decode_to_packed, t1_blocks)
+                                                  decode_to_packed, ht_blocks,
+                                                  t1_blocks)
 from go_dicom_codec_torch.ops import j2k_t1_decode as T
 from go_dicom_codec_torch.tools.device_bench import t1_streams
 from go_dicom_codec_torch.utils import profiling
@@ -204,7 +205,9 @@ def test_card_route_takes_reversible_chunks(case, chunk, card_lane):
 
 
 def _ht():
-    return _series(60, 2, 48, 56, htj2k=True)
+    """HT code-blocks with SigProp and MagRef passes: the HT kernel takes
+    cleanup passes alone, so these stay on the host."""
+    return _series(60, 2, 48, 56, htj2k=True, ht_refinement=True)
 
 
 def _lossy():
@@ -220,15 +223,32 @@ def _roi():
                          ids=["htj2k", "lossy", "roi"])
 def test_card_route_leaves_other_streams_on_the_host(make, card_lane):
     streams = make()
-    assert all(t1_blocks(s) is None for s in streams)
+    assert all(t1_blocks(s) is None and ht_blocks(s) is None
+               for s in streams)
     card_lane.clear()
     got = P.decode_frames_pipelined(streams, engine="device", device=CPU)
     assert card_lane.get("t1.device_blocks", 0) == 0
+    assert card_lane.get("ht.device_blocks", 0) == 0
     want = P.decode_frames_pipelined(streams, engine="device", device=CPU,
                                      chunk=1) if make is _lossy else \
         _scalar(streams)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_card_route_takes_htj2k_cleanup_chunks(card_lane):
+    """HT code-blocks of cleanup passes alone go to the card's HT kernel
+    (ops/j2k_ht_decode.py), none to the MQ one."""
+    streams = _series(60, 2, 48, 56, htj2k=True)
+    assert all(t1_blocks(s) is None for s in streams)
+    card_lane.clear()
+    got = P.decode_frames_pipelined(streams, engine="device", device=CPU)
+    counts = dict(card_lane)
+    for g, w in zip(got, _scalar(streams)):
+        np.testing.assert_array_equal(g, w)
+    assert counts.get("t1.device_blocks", 0) == 0
+    assert counts["ht.device_blocks"] == sum(len(ht_blocks(s)[4])
+                                             for s in streams)
 
 
 def test_card_route_leaves_reduced_decodes_on_the_host(card_lane):
